@@ -1,0 +1,336 @@
+"""The full codec: weights, tokenize/detokenize, and the chunked ``AudioCodec``.
+
+Counterpart of ``simwhisper_codec_tpu/models/codec.py`` (reference
+``audiocodec/model.py``):
+
+    wav (B, 480000) --mel--encoder--downsample--FSQ--> codes (8, B, 375)
+    codes (8, B, 375) --FSQ^-1--upsample--decoder--Vocos--> wav (B, 480000)
+
+``SimWhisperCodec`` holds the weights under the reference's state-dict keys
+(``acoustic_encoder``, ``downsample``, ``upsample``, ``acoustic_decoder``,
+``vocos``); its constants are non-persistent buffers.  ``AudioCodec`` keeps
+the reference's chunk arithmetic (stride = 30 s - overlap, valid-region
+extraction, final ``length // 1280`` trim), pads every batch to
+``batch_size`` and passes the chunk width as a virtual right edge, exactly
+as the JAX package does.
+
+Modes: ``parity`` (f32, dense attention, exact GELU), ``fast`` (bf16, the
+pflash attention kernel and the fused LN-FFN kernel in every transformer FFN
+and Vocos chain), ``fast-int8`` (as ``fast`` for tokenize; the decoder FFNs
+and Vocos chains run the fused int8 kernel, so codes equal ``fast`` codes)
+and ``fast-int8-full`` (int8 FFNs on both sides).  TF32 is off for every
+float32 matmul and convolution, the counterpart of ``Precision.HIGHEST``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from simwhisper_codec_tpu_torch.config import CodecConfig, load_config
+from simwhisper_codec_tpu_torch.models import sampling, transformer, vocos
+from simwhisper_codec_tpu_torch.ops import fsq, mel
+from simwhisper_codec_tpu_torch.ops.quant import quantize_stacked_convnext, quantize_stacked_ffn
+from simwhisper_codec_tpu_torch.ops.snake import AliasFreeConstants
+
+logger = logging.getLogger(__name__)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class CodecConstants(nn.Module):
+    """Mel bases, kaiser taps and FSQ levels (non-persistent buffers)."""
+
+    def __init__(self, cfg: CodecConfig):
+        super().__init__()
+        self.mel = mel.MelConstants(cfg.feature_extractor)
+        self.af = AliasFreeConstants()
+        self.fsq = fsq.FSQConstants(cfg.quantizer)
+
+
+class SimWhisperCodec(nn.Module):
+    """All weights of the codec, named as in the reference state dict."""
+
+    def __init__(self, cfg: CodecConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.acoustic_encoder = transformer.Encoder(cfg.acoustic_encoder)
+        self.downsample = sampling.FrameStackDown(cfg.downsample)
+        self.upsample = sampling.FrameStackUp(cfg.upsample)
+        self.acoustic_decoder = transformer.Decoder(cfg.acoustic_decoder)
+        self.vocos = vocos.Vocos(cfg.vocos)
+        self.consts = CodecConstants(cfg)
+
+
+def init_params(cfg: CodecConfig, generator: Optional[torch.Generator] = None) -> SimWhisperCodec:
+    """Randomly initialised codec on the CPU, drawn from ``generator``
+    (default: ``torch.Generator().manual_seed(0)``)."""
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    model = SimWhisperCodec(cfg)
+    transformer.init_transformer(model.acoustic_encoder, gen)
+    sampling.init_sampler(model.downsample, gen)
+    sampling.init_sampler(model.upsample, gen)
+    transformer.init_transformer(model.acoustic_decoder, gen)
+    vocos.init_vocos(model.vocos, gen)
+    return model
+
+
+def tokenize(model: SimWhisperCodec, wav: torch.Tensor, sample_lengths: torch.Tensor,
+             compute_dtype: str = "float32", attn_impl: str = "dense", ffn_impl: str = "dense"
+             ) -> Dict[str, torch.Tensor]:
+    """wav (B, chunk_samples) + lengths -> {"zq": (B, Tc, D), "codes": (G, B, Tc) int32,
+    "codes_lengths": (B,)}."""
+    c = model.consts
+    feats = mel.log_mel(c.mel, wav)  # f32 in every mode
+    mel_lens = mel.mel_lengths(sample_lengths, c.mel.hop, c.mel.n_frames)
+    feats = feats.to(_DTYPES[compute_dtype])
+    enc, enc_len = model.acoustic_encoder(feats, mel_lens, attn_impl, ffn_impl)
+    z, z_len = model.downsample(c.af, enc, enc_len)
+    zq, codes = fsq.group_fsq_forward(c.fsq, z.to(torch.float32), z_len)
+    return {"zq": zq, "codes": codes, "codes_lengths": z_len}
+
+
+def detokenize(model: SimWhisperCodec, codes: torch.Tensor, code_lengths: torch.Tensor,
+               code_frame_valid: Optional[int] = None, compute_dtype: str = "float32",
+               attn_impl: str = "dense", ffn_impl: str = "dense", vocos_impl=None
+               ) -> Dict[str, torch.Tensor]:
+    """codes (G, B, Tc) -> {"y": (B, Tc * 1280), "output_length": (B,)}.
+
+    ``code_frame_valid``: the chunk width the reference would have processed
+    (<= Tc); drives the virtual right edge of the Vocos convs and the ISTFT.
+    """
+    cfg, c = model.cfg, model.consts
+    zq = fsq.group_fsq_decode(c.fsq, codes, code_lengths).to(_DTYPES[compute_dtype])
+    up, up_len = model.upsample(c.af, zq, code_lengths)
+    dec, dec_len = model.acoustic_decoder(up, up_len, attn_impl, ffn_impl)
+    frame_valid = None
+    if code_frame_valid is not None:
+        frame_valid = int(code_frame_valid) * cfg.upsample.stack_factor * cfg.acoustic_decoder.stride_size
+    audio, out_len = model.vocos(dec, dec_len, frame_valid, vocos_impl)
+    return {"y": audio, "output_length": out_len}
+
+
+def fast_mode_settings() -> dict:
+    """The fast serving configuration, in one place: bf16 compute, the pflash
+    attention kernel, the fused LN-FFN kernel for the transformer FFNs and the
+    Vocos chains, and the int8 kernel where a mode asks for int8."""
+    return {
+        "compute_dtype": "bfloat16",
+        "attn_impl": "pflash",
+        "ffn_impl": "fused",
+        "vocos_impl": "fused",
+        "int8_ffn_impl": "int8-fused",
+        "int8_vocos_impl": "int8",
+    }
+
+
+MODES = ("parity", "fast", "fast-int8", "fast-int8-full")
+
+
+def mode_programs(mode: str) -> tuple:
+    """(tokenize kwargs, detokenize kwargs) of a serving mode."""
+    if mode == "parity":
+        kw = {"compute_dtype": "float32", "attn_impl": "dense", "ffn_impl": "dense"}
+        return dict(kw), dict(kw, vocos_impl=None)
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    fk = fast_mode_settings()
+    base = {"compute_dtype": fk["compute_dtype"], "attn_impl": fk["attn_impl"]}
+    int8 = mode in ("fast-int8", "fast-int8-full")
+    tok = dict(base, ffn_impl=fk["int8_ffn_impl"] if mode == "fast-int8-full" else fk["ffn_impl"])
+    detok = dict(base, ffn_impl=fk["int8_ffn_impl"] if int8 else fk["ffn_impl"],
+                 vocos_impl=fk["int8_vocos_impl"] if int8 else fk["vocos_impl"])
+    return tok, detok
+
+
+@contextlib.contextmanager
+def full_f32_precision():
+    """No TF32 for float32 matmuls or cuDNN convolutions inside the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller asks for another device; raises if CUDA is asked for and absent."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class AudioCodec:
+    """User-facing codec with the reference's API shape (chunked encode/decode)."""
+
+    def __init__(self, cfg: CodecConfig, model: SimWhisperCodec, batch_size: int = 8,
+                 mode: str = "parity", device=None):
+        """``model`` is moved to ``device`` (default ``cuda``); int8 modes add
+        the quantised weights to it as non-persistent buffers."""
+        self.cfg = cfg
+        self.mode = mode
+        self.device = resolve_device(device)
+        self._tok_kw, self._detok_kw = mode_programs(mode)
+        self.model = model.to(self.device).eval()
+        if mode in ("fast-int8", "fast-int8-full"):
+            quantize_stacked_ffn(self.model.acoustic_decoder.layers)
+            if mode == "fast-int8-full":
+                quantize_stacked_ffn(self.model.acoustic_encoder.layers)
+            quantize_stacked_convnext(self.model.vocos.backbone.convnext)
+        self.batch_size = batch_size
+        self.input_sample_rate = cfg.input_sample_rate
+        self.output_sample_rate = cfg.output_sample_rate
+        self.max_audio_seconds = cfg.max_audio_seconds
+        self.encoder_downsample_rate = cfg.encoder_downsample_rate
+        self.decoder_upsample_rate = cfg.decoder_upsample_rate
+        self.num_groups = cfg.quantizer.num_groups
+
+    # -- single-chunk paths --------------------------------------------------
+
+    def _pad_batch_dim(self, b: int) -> int:
+        return self.batch_size if b < self.batch_size else b
+
+    @torch.no_grad()
+    def inference_tokenize(self, wav: np.ndarray, input_lengths: np.ndarray) -> dict:
+        """wav (B, T <= chunk_samples) float host array -> codes (device tensors)."""
+        wav = np.asarray(wav, np.float32)
+        b, t = wav.shape
+        n = self.cfg.chunk_samples
+        wav = np.pad(wav, ((0, 0), (0, n - t))) if t < n else wav[:, :n]
+        input_lengths = np.asarray(input_lengths)
+        bp = self._pad_batch_dim(b)
+        if bp != b:
+            wav = np.pad(wav, ((0, bp - b), (0, 0)))
+            input_lengths = np.pad(input_lengths, (0, bp - b))
+        wav_t = torch.from_numpy(np.ascontiguousarray(wav)).to(self.device)
+        len_t = torch.from_numpy(input_lengths.astype(np.int64)).to(self.device)
+        with full_f32_precision():
+            out = tokenize(self.model, wav_t, len_t, **self._tok_kw)
+        if bp != b:  # drop batch-padding rows
+            out = {"zq": out["zq"][:b], "codes": out["codes"][:, :b], "codes_lengths": out["codes_lengths"][:b]}
+        return out
+
+    @torch.no_grad()
+    def inference_detokenize(self, codes: np.ndarray, codes_lengths: np.ndarray,
+                             chunk_width: Optional[int] = None) -> dict:
+        """codes (G, B, T <= code_frames) -> waveform (device tensors)."""
+        g, b, t = codes.shape
+        n = self.cfg.code_frames
+        width = chunk_width if chunk_width is not None else t
+        if t < n:
+            codes = np.pad(codes, ((0, 0), (0, 0), (0, n - t)))
+        codes_lengths = np.asarray(codes_lengths)
+        bp = self._pad_batch_dim(b)
+        if bp != b:
+            codes = np.pad(codes, ((0, 0), (0, bp - b), (0, 0)))
+            codes_lengths = np.pad(codes_lengths, (0, bp - b))
+        codes_t = torch.from_numpy(np.ascontiguousarray(codes, np.int32)).to(self.device)
+        len_t = torch.from_numpy(codes_lengths.astype(np.int64)).to(self.device)
+        with full_f32_precision():
+            out = detokenize(self.model, codes_t, len_t, width, **self._detok_kw)
+        if bp != b:
+            out = {"y": out["y"][:b], "output_length": out["output_length"][:b]}
+        return out
+
+    # -- chunked streaming (reference model.py:244-373) ------------------------
+
+    def encode(self, wav_list: List[np.ndarray], overlap_seconds: int = 10) -> dict:
+        """List of 1-D waveforms (float, or int16 PCM read as int16 / 32768)
+        -> {"codes_list": [(G, T_i) int32]}."""
+        duration_seconds = self.max_audio_seconds - overlap_seconds
+        chunk_size = self.max_audio_seconds * self.input_sample_rate
+        duration_size = duration_seconds * self.input_sample_rate
+        code_duration_length = duration_size // self.encoder_downsample_rate
+
+        batch_size = len(wav_list)
+        max_length = max(len(w) for w in wav_list)
+        input_lengths = np.array([len(w) for w in wav_list], np.int64)
+        wav_tensor = np.zeros((batch_size, max_length), np.float32)
+        for i, w in enumerate(wav_list):
+            w = np.asarray(w).reshape(-1)
+            if w.dtype == np.int16:
+                w = w.astype(np.float32) / 32768.0
+            wav_tensor[i, : len(w)] = w
+
+        max_chunks = (max_length + duration_size - 1) // duration_size
+        chunks_out = []
+        for chunk_idx in range(max_chunks):
+            start = chunk_idx * duration_size
+            end = min(start + chunk_size, max_length)
+            chunk_lengths = np.clip(input_lengths - start, 0, end - start)
+            if chunk_lengths.max() == 0:
+                continue
+            result = self.inference_tokenize(wav_tensor[:, start:end], chunk_lengths)
+            codes = result["codes"].cpu().numpy()
+            code_lens = result["codes_lengths"].cpu().numpy()
+            valid = np.clip(code_lens, 0, code_duration_length)
+            out = codes[:, :, :code_duration_length].copy()
+            t_idx = np.arange(code_duration_length)
+            out *= (t_idx[None, None, :] < valid[None, :, None]).astype(out.dtype)
+            chunks_out.append(out)
+
+        if chunks_out:
+            codes_tensor = np.concatenate(chunks_out, axis=-1)
+            codes_list = [codes_tensor[:, i, : input_lengths[i] // self.encoder_downsample_rate]
+                          for i in range(batch_size)]
+        else:
+            codes_list = [np.zeros((self.num_groups, 0), np.int32) for _ in range(batch_size)]
+        return {"codes_list": codes_list}
+
+    def decode(self, codes_list: List[np.ndarray], overlap_seconds: int = 10) -> dict:
+        """List of (G, T_i) code arrays -> {"syn_wav_list": [(T_i * 1280,) f32]}."""
+        duration_seconds = self.max_audio_seconds - overlap_seconds
+        chunk_code_length = self.max_audio_seconds * self.input_sample_rate // self.encoder_downsample_rate
+        duration_code_length = duration_seconds * self.input_sample_rate // self.encoder_downsample_rate
+        duration_wav_length = duration_code_length * self.decoder_upsample_rate
+
+        batch_size = len(codes_list)
+        max_code_length = max(c.shape[-1] for c in codes_list)
+        code_lengths = np.array([c.shape[-1] for c in codes_list], np.int64)
+        codes_tensor = np.zeros((self.num_groups, batch_size, max_code_length), np.int32)
+        for i, c in enumerate(codes_list):
+            codes_tensor[:, i, : c.shape[-1]] = np.asarray(c)
+
+        max_chunks = (max_code_length + duration_code_length - 1) // duration_code_length
+        wav_chunks = []
+        for chunk_idx in range(max_chunks):
+            start = chunk_idx * duration_code_length
+            end = min(start + chunk_code_length, max_code_length)
+            chunk_code_lengths = np.clip(code_lengths - start, 0, end - start)
+            if chunk_code_lengths.max() == 0:
+                continue
+            result = self.inference_detokenize(codes_tensor[:, :, start:end], chunk_code_lengths,
+                                               chunk_width=end - start)
+            # only the first stride's worth of each chunk is kept
+            wav = result["y"][:, :duration_wav_length].to(torch.float32).cpu().numpy()
+            wav_lens = result["output_length"].cpu().numpy()
+            valid = np.clip(wav_lens, 0, duration_wav_length)
+            t_idx = np.arange(wav.shape[1])
+            wav_chunks.append(wav * (t_idx[None, :] < valid[:, None]).astype(wav.dtype))
+
+        if wav_chunks:
+            wav_tensor = np.concatenate(wav_chunks, axis=-1)
+            syn_wav_list = [wav_tensor[i, : code_lengths[i] * self.decoder_upsample_rate]
+                            for i in range(batch_size)]
+        else:
+            syn_wav_list = [np.zeros((0,), np.float32) for _ in range(batch_size)]
+        return {"syn_wav_list": syn_wav_list}
+
+    @classmethod
+    def load_from_checkpoint(cls, config_path: str, ckpt_path: str, **kwargs) -> "AudioCodec":
+        """Build from a YAML config and a reference ``.pt`` state dict."""
+        from simwhisper_codec_tpu_torch.utils.checkpoint import load_reference_checkpoint
+
+        logger.info("Loading model from %s and %s", config_path, ckpt_path)
+        cfg = load_config(config_path)
+        model = SimWhisperCodec(cfg)
+        load_reference_checkpoint(model, ckpt_path)
+        return cls(cfg, model, **kwargs)

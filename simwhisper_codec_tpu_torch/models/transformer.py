@@ -1,0 +1,217 @@
+"""Whisper-style transformer encoder/decoder.
+
+Counterpart of ``simwhisper_codec_tpu/models/transformer.py`` (reference
+``audiocodec/nn/modules.py:85-474``).  Submodules are named after the
+reference's state-dict keys (``layers.{i}.self_attn.q_proj``, ...), so a
+module's ``state_dict()`` is a reference-layout state dict.  Activations are
+channels-last (B, T, D); parameters stay f32 and are cast to the activation
+dtype where they are used.
+
+Attention impls: ``dense`` (additive +1.0 / f32-min pair bias, parity
+mode) and ``pflash`` (packed QKV + the ``csrc/pflash.cu`` core).  FFN impls:
+``dense`` (exact GELU), ``fused`` (``csrc/ln_ffn.cu``) and ``int8-fused``
+(``csrc/ln_ffn_int8.cu``; needs ``ops.quant.quantize_stacked_ffn``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from simwhisper_codec_tpu_torch.config import DecoderConfig, EncoderConfig
+from simwhisper_codec_tpu_torch.ops.conv import conv1d, conv_transpose1d
+
+ATTN_IMPLS = ("dense", "pflash")
+FFN_IMPLS = ("dense", "fused", "int8-fused")
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the trailing dim with f32 statistics, returned in x.dtype."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.square(xf - mean).mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * ln.weight.to(torch.float32) + ln.bias.to(torch.float32)).to(x.dtype)
+
+
+def attention_bias(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B, 1, T, T) f32 bias: +1.0 on valid query/key pairs, f32 min elsewhere."""
+    valid = torch.arange(max_len, device=lengths.device)[None, :] < lengths[:, None]
+    pair = valid[:, None, :, None] & valid[:, None, None, :]
+    neg = torch.finfo(torch.float32).min
+    return torch.where(pair, torch.tensor(1.0, device=lengths.device), torch.tensor(neg, device=lengths.device))
+
+
+def seq_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B,) -> (B, T, 1) bool validity mask."""
+    return (torch.arange(max_len, device=lengths.device)[None, :] < lengths[:, None])[..., None]
+
+
+def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """``nn.Linear`` with its weight and bias cast to x.dtype."""
+    bias = None if lin.bias is None else lin.bias.to(x.dtype)
+    return F.linear(x, lin.weight.to(x.dtype), bias)
+
+
+class SelfAttention(nn.Module):
+    """q/k/v/out projections; k has no bias (Whisper convention)."""
+
+    def __init__(self, d: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d, bias=False)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+
+    def dense(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """Dense attention with the additive pair bias (modules.py:145-187)."""
+        b, t, d = x.shape
+        hd = d // self.num_heads
+        q = linear(x, self.q_proj) * hd ** -0.5
+        k = linear(x, self.k_proj)
+        v = linear(x, self.v_proj)
+        q, k, v = (z.reshape(b, t, self.num_heads, hd).transpose(1, 2) for z in (q, k, v))
+        scores = (q @ k.transpose(-1, -2)).to(torch.float32) + bias
+        weights = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = (weights @ v).transpose(1, 2).reshape(b, t, d)
+        return linear(out, self.out_proj)
+
+
+class TransformerLayer(nn.Module):
+    """Pre-LN block: LN -> attention -> residual, LN -> FFN -> residual."""
+
+    def __init__(self, d: int, num_heads: int, ffn: int):
+        super().__init__()
+        self.self_attn_layer_norm = nn.LayerNorm(d)
+        self.self_attn = SelfAttention(d, num_heads)
+        self.final_layer_norm = nn.LayerNorm(d)
+        self.fc1 = nn.Linear(d, ffn)
+        self.fc2 = nn.Linear(ffn, d)
+
+    def forward(self, x, bias, lengths, attn_impl: str = "dense", ffn_impl: str = "dense"):
+        h = layer_norm(x, self.self_attn_layer_norm)
+        if attn_impl == "pflash":
+            from simwhisper_codec_tpu_torch.ops.flash_attention import varlen_attention_pflash
+
+            x = x + varlen_attention_pflash(self.self_attn, h, lengths)
+        elif attn_impl == "dense":
+            x = x + self.self_attn.dense(h, bias)
+        else:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+        b, t, d = x.shape
+        xf = x.reshape(b * t, d)
+        ln = self.final_layer_norm
+        if ffn_impl == "fused":
+            from simwhisper_codec_tpu_torch.ops.fused_convnext import fused_ln_ffn
+
+            x = fused_ln_ffn(xf, xf, ln.weight, ln.bias, self.fc1.weight, self.fc1.bias,
+                             self.fc2.weight, self.fc2.bias, eps=1e-5).reshape(b, t, d)
+        elif ffn_impl == "int8-fused":
+            from simwhisper_codec_tpu_torch.ops.fused_convnext import fused_ln_ffn_int8
+
+            x = fused_ln_ffn_int8(xf, xf, ln.weight, ln.bias, self.fc1_q, self.fc1_s, self.fc1.bias,
+                                  self.fc2_q, self.fc2_s, self.fc2.bias, eps=1e-5).reshape(b, t, d)
+        elif ffn_impl == "dense":
+            h = layer_norm(xf, ln)
+            h = F.gelu(linear(h, self.fc1), approximate="none")
+            x = x + linear(h, self.fc2).reshape(b, t, d)
+        else:
+            raise ValueError(f"ffn_impl must be one of {FFN_IMPLS}, got {ffn_impl!r}")
+        if x.dtype == torch.bfloat16:
+            # half-precision inf/nan clamp (modules.py:228-231): for bf16,
+            # max - 1000 rounds back to max, so it is an unconditional clip
+            clamp = torch.finfo(torch.bfloat16).max
+            x = torch.clamp(x, -clamp, clamp)
+        return x
+
+
+def run_layers(layers: nn.ModuleList, x, lengths, attn_impl: str, ffn_impl: str):
+    bias = attention_bias(lengths, x.shape[1]) if attn_impl == "dense" else None
+    for layer in layers:
+        x = layer(x, bias, lengths, attn_impl, ffn_impl)
+    return x
+
+
+class Encoder(nn.Module):
+    """Acoustic encoder (modules.py:236-376): two convs, then the layer stack."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        if not cfg.is_acoustic:
+            raise ValueError("only the acoustic encoder (is_acoustic=True) is ported")
+        d = cfg.d_model
+        self.cfg = cfg
+        self.conv1 = nn.Conv1d(cfg.num_mel_bins, d, cfg.kernel_size, padding=1)
+        self.conv2 = nn.Conv1d(d, d, cfg.kernel_size, stride=cfg.stride_size, padding=1)
+        self.layers = nn.ModuleList(TransformerLayer(d, cfg.encoder_attention_heads, cfg.encoder_ffn_dim)
+                                    for _ in range(cfg.encoder_layers))
+        self.layer_norm = nn.LayerNorm(d)
+
+    def forward(self, mel, mel_lengths, attn_impl: str = "dense", ffn_impl: str = "dense"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """mel (B, T_mel, n_mels) -> hidden (B, T_mel // stride, D), lengths (B,)."""
+        x = conv1d(mel, self.conv1.weight, self.conv1.bias, padding=1)
+        x = conv1d(x, self.conv2.weight, self.conv2.bias, stride=self.cfg.stride_size, padding=1)
+        out_lengths = mel_lengths // self.cfg.stride_size
+        t = x.shape[1]
+        x = run_layers(self.layers, x, out_lengths, attn_impl, ffn_impl)
+        x = layer_norm(x, self.layer_norm)
+        return torch.where(seq_mask(out_lengths, t), x, torch.zeros_like(x)), out_lengths
+
+
+class Decoder(nn.Module):
+    """Transformer mel decoder (modules.py:380-474): layer stack, then two deconvs."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.cfg = cfg
+        self.layers = nn.ModuleList(TransformerLayer(d, cfg.decoder_attention_heads, cfg.decoder_ffn_dim)
+                                    for _ in range(cfg.decoder_layers))
+        self.layer_norm = nn.LayerNorm(d)
+        self.deconv1 = nn.ConvTranspose1d(d, d, cfg.kernel_size, stride=cfg.stride_size)
+        self.deconv2 = nn.ConvTranspose1d(d, cfg.num_mel_bins, cfg.kernel_size, stride=1)
+
+    def forward(self, h, lengths, attn_impl: str = "dense", ffn_impl: str = "dense"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """h (B, T, D) -> mel (B, 2T, n_mels), lengths * stride."""
+        t = h.shape[1]
+        x = run_layers(self.layers, h, lengths, attn_impl, ffn_impl)
+        x = layer_norm(x, self.layer_norm)
+        x = torch.where(seq_mask(lengths, t), x, torch.zeros_like(x))
+        # deconv1: k3 s2 -> 2T+1; deconv2: k3 s1 -> 2T+3; trim to exactly 2T
+        x = conv_transpose1d(x, self.deconv1.weight, self.deconv1.bias, stride=self.cfg.stride_size)
+        x = conv_transpose1d(x, self.deconv2.weight, self.deconv2.bias, stride=1)
+        return x[:, : t * self.cfg.stride_size], lengths * self.cfg.stride_size
+
+
+def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=gen)
+
+
+def init_transformer(module: nn.Module, gen: torch.Generator) -> None:
+    """Random init of an Encoder/Decoder (JAX package ``transformer.py:472-531``):
+    U(+-1/sqrt(fan_in)) for linears and convs (fan_in = out_channels * k for
+    the deconvs, as torch's ConvTranspose1d), LayerNorms at 1 / 0."""
+    for sub in module.modules():
+        if isinstance(sub, nn.Linear):
+            bound = 1.0 / math.sqrt(sub.in_features)
+        elif isinstance(sub, nn.ConvTranspose1d):
+            bound = 1.0 / math.sqrt(sub.out_channels * sub.kernel_size[0])
+        elif isinstance(sub, nn.Conv1d):
+            bound = 1.0 / math.sqrt(sub.in_channels // sub.groups * sub.kernel_size[0])
+        elif isinstance(sub, nn.LayerNorm):
+            nn.init.ones_(sub.weight)
+            nn.init.zeros_(sub.bias)
+            continue
+        else:
+            continue
+        _uniform_(sub.weight, bound, gen)
+        if sub.bias is not None:
+            _uniform_(sub.bias, bound, gen)

@@ -1,0 +1,129 @@
+"""Vocos vocoder: ConvNeXt backbone + ISTFT head.
+
+Counterpart of ``simwhisper_codec_tpu/models/vocos.py`` (reference
+``audiocodec/nn/modules.py:1033-1574``).  Submodules follow the reference
+keys (``backbone.embed``, ``backbone.convnext.{i}.pwconv1``, ``head.out``).
+
+``frame_valid`` (an int or None) is a virtual right edge: inputs are
+re-zeroed beyond it before every conv, and the ISTFT envelope ends there,
+so a fixed T-frame run reproduces the reference's shorter-array output.
+
+Pointwise-chain impls per block: ``None`` (exact GELU, parity mode),
+``"fused"`` (``csrc/ln_ffn.cu``) and ``"int8"`` (``csrc/ln_ffn_int8.cu``;
+needs ``ops.quant.quantize_stacked_convnext``).  The residual of a block is
+its *unmasked* input, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from simwhisper_codec_tpu_torch.config import VocosConfig
+from simwhisper_codec_tpu_torch.models.sampling import trunc_normal_
+from simwhisper_codec_tpu_torch.models.transformer import layer_norm, linear
+from simwhisper_codec_tpu_torch.ops.conv import conv1d, depthwise_conv1d_shifts
+from simwhisper_codec_tpu_torch.ops.stft import ISTFTConstants, istft_same
+
+VOCOS_IMPLS = (None, "fused", "int8")
+
+
+def edge_mask(t: int, frame_valid: Optional[int], dtype, device) -> Optional[torch.Tensor]:
+    if frame_valid is None:
+        return None
+    return (torch.arange(t, device=device) < frame_valid).to(dtype)[None, :, None]
+
+
+class ConvNeXtBlock(nn.Module):
+    def __init__(self, dim: int, intermediate: int, layer_scale: float):
+        super().__init__()
+        self.dwconv = nn.Conv1d(dim, dim, 7, padding=3, groups=dim)
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.pwconv1 = nn.Linear(dim, intermediate)
+        self.pwconv2 = nn.Linear(intermediate, dim)
+        self.gamma = nn.Parameter(torch.full((dim,), layer_scale))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], impl=None) -> torch.Tensor:
+        residual = x
+        if mask is not None:
+            x = x * mask
+        x = depthwise_conv1d_shifts(x, self.dwconv.weight[:, 0, :].t(), self.dwconv.bias, padding=3)
+        b, t, c = x.shape
+        xf, rf = x.reshape(b * t, c), residual.reshape(b * t, c)
+        if impl == "int8":
+            from simwhisper_codec_tpu_torch.ops.fused_convnext import fused_ln_ffn_int8
+
+            return fused_ln_ffn_int8(xf, rf, self.norm.weight, self.norm.bias, self.pw1_q, self.pw1_s,
+                                     self.pwconv1.bias, self.pw2_q, self.pw2_s, self.pwconv2.bias,
+                                     self.gamma, eps=1e-6).reshape(b, t, c)
+        if impl == "fused":
+            from simwhisper_codec_tpu_torch.ops.fused_convnext import fused_convnext_ffn
+
+            return fused_convnext_ffn(xf, rf, self).reshape(b, t, c)
+        if impl is not None:
+            raise ValueError(f"vocos impl must be one of {VOCOS_IMPLS}, got {impl!r}")
+        h = layer_norm(xf, self.norm, eps=1e-6)
+        h = linear(F.gelu(linear(h, self.pwconv1), approximate="none"), self.pwconv2)
+        return residual + (self.gamma.to(h.dtype) * h).reshape(b, t, c)
+
+
+class Backbone(nn.Module):
+    def __init__(self, cfg: VocosConfig):
+        super().__init__()
+        self.embed = nn.Conv1d(cfg.input_channels, cfg.dim, 7, padding=3)
+        self.norm = nn.LayerNorm(cfg.dim, eps=1e-6)
+        self.convnext = nn.ModuleList(ConvNeXtBlock(cfg.dim, cfg.intermediate_dim, cfg.layer_scale_init_value)
+                                      for _ in range(cfg.num_layers))
+        self.final_layer_norm = nn.LayerNorm(cfg.dim, eps=1e-6)
+
+
+class Head(nn.Module):
+    def __init__(self, cfg: VocosConfig):
+        super().__init__()
+        self.out = nn.Linear(cfg.dim, cfg.n_fft + 2)
+
+
+class Vocos(nn.Module):
+    def __init__(self, cfg: VocosConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = Backbone(cfg)
+        self.head = Head(cfg)
+        self.istft = ISTFTConstants(cfg.n_fft, cfg.hop_size)
+
+    def forward(self, mel: torch.Tensor, lengths: torch.Tensor, frame_valid: Optional[int] = None,
+                impl=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T, input_channels) -> waveform (B, T * hop), lengths * hop."""
+        bb = self.backbone
+        mask = edge_mask(mel.shape[1], frame_valid, mel.dtype, mel.device)
+        x = mel if mask is None else mel * mask
+        x = conv1d(x, bb.embed.weight, bb.embed.bias, padding=3)
+        x = layer_norm(x, bb.norm, eps=1e-6)
+        for block in bb.convnext:
+            x = block(x, mask, impl)
+        x = layer_norm(x, bb.final_layer_norm, eps=1e-6)
+        x = linear(x, self.head.out)
+        n_freq = self.cfg.n_fft // 2 + 1
+        mag = torch.clamp(torch.exp(x[..., :n_freq]), max=1e2)
+        phase = x[..., n_freq:]
+        spec_re = (mag * torch.cos(phase)).to(torch.float32)
+        spec_im = (mag * torch.sin(phase)).to(torch.float32)
+        audio = istft_same(self.istft, spec_re, spec_im, frame_valid)
+        return audio.to(mel.dtype), lengths * self.cfg.hop_size
+
+
+def init_vocos(module: Vocos, gen: torch.Generator) -> None:
+    """Truncated-normal(0.02) convs and linears, zero biases, unit LayerNorms,
+    gamma = 1 / num_layers (reference modules.py:1487-1490)."""
+    for sub in module.modules():
+        if isinstance(sub, (nn.Conv1d, nn.Linear)):
+            trunc_normal_(sub.weight, gen)
+            nn.init.zeros_(sub.bias)
+        elif isinstance(sub, nn.LayerNorm):
+            nn.init.ones_(sub.weight)
+            nn.init.zeros_(sub.bias)
+        elif isinstance(sub, ConvNeXtBlock):
+            nn.init.constant_(sub.gamma, module.cfg.layer_scale_init_value)

@@ -1,0 +1,143 @@
+"""Fused LN -> FFN -> layer scale -> residual chains: CUDA kernels and plain versions.
+
+Counterpart of ``simwhisper_codec_tpu/ops/fused_convnext.py`` (``fused_ln_ffn``
+and ``fused_convnext_ffn`` :38-139, ``fused_ln_ffn_int8`` :261-357).  The
+kernels are ``csrc/ln_ffn.cu`` (bf16) and ``csrc/ln_ffn_int8.cu`` (int8);
+see their headers for the designs.  Each wrapper launches its kernel for a
+CUDA tensor and runs the plain version for a CPU tensor; there is no
+fallback between the two.
+
+All (M, C) rows; weights in ``nn.Linear`` layout: W1 (I, C), W2 (C, I).
+As in the JAX wrappers, every operand is cast to x.dtype first (the int8
+weight scales stay f32); LN, accumulation and the epilogue are f32; the GELU
+is the tanh approximation.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from simwhisper_codec_tpu_torch.ops import _cuda
+
+
+def _gelu_tanh(h: torch.Tensor) -> torch.Tensor:
+    h3 = h * h * h
+    return 0.5 * h * (1.0 + torch.tanh(0.7978845608028654 * (h + 0.044715 * h3)))
+
+
+def _ln_f32(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.square(xf - mean).mean(-1, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + eps) * ln_w.to(torch.float32) + ln_b.to(torch.float32)
+
+
+def _gamma(gamma: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    return torch.ones(x.shape[-1], dtype=x.dtype, device=x.device) if gamma is None else gamma.to(x.dtype)
+
+
+def _row_quant(v: torch.Tensor):
+    """Per-row absmax int8 quantisation of f32 rows -> (integer-valued f32, scale)."""
+    s = v.abs().amax(-1, keepdim=True) / 127.0
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    return torch.round(v / s), s
+
+
+def _int_matmul(aq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact s8 x s8 product: float64 holds every partial sum exactly
+    (127^2 * I < 2^53), float32 would not (2^24 < 127^2 * 4096)."""
+    return (aq.to(torch.float64) @ wq.to(torch.float64).t()).to(torch.float32)
+
+
+def fused_ln_ffn_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma=None, eps=1e-6):
+    """res + gamma * (GELU_tanh(LN(x) W1^T + b1) W2^T + b2), step by step."""
+    dt = x.dtype
+    w1, w2 = w1.to(dt).to(torch.float32), w2.to(dt).to(torch.float32)
+    xn = _ln_f32(x, ln_w.to(dt), ln_b.to(dt), eps).to(dt).to(torch.float32)
+    h = _gelu_tanh(xn @ w1.t() + b1.to(dt).to(torch.float32)).to(dt).to(torch.float32)
+    y = h @ w2.t() + b2.to(dt).to(torch.float32)
+    y = _gamma(gamma, x).to(torch.float32) * y
+    return (residual.to(torch.float32) + y).to(dt)
+
+
+def fused_ln_ffn_int8_plain(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma=None, eps=1e-6):
+    """int8 chain step by step: LN -> row quant -> exact s8 product -> rescale
+    -> GELU -> row requant -> exact s8 product -> rescale -> gamma -> residual."""
+    dt = x.dtype
+    xq, xs = _row_quant(_ln_f32(x, ln_w.to(dt), ln_b.to(dt), eps))
+    h = _int_matmul(xq, w1q) * xs * s1.to(torch.float32) + b1.to(dt).to(torch.float32)
+    hq, hs = _row_quant(_gelu_tanh(h))
+    y = _int_matmul(hq, w2q) * hs * s2.to(torch.float32) + b2.to(dt).to(torch.float32)
+    y = _gamma(gamma, x).to(torch.float32) * y
+    return (residual.to(torch.float32) + y).to(dt)
+
+
+def _check_rows(x, residual, c_max=768):
+    _cuda.require(x.device.type == "cuda", f"unsupported device {x.device}")
+    _cuda.require(x.dtype == torch.bfloat16, f"fused LN-FFN kernels take bfloat16, got {x.dtype}")
+    _cuda.require(x.dim() == 2 and x.is_contiguous(), "x must be a contiguous (M, C) tensor")
+    _cuda.require(residual.shape == x.shape and residual.dtype == x.dtype and residual.is_contiguous()
+                  and residual.device == x.device, "residual must match x")
+    c = x.shape[1]
+    _cuda.require(c % 64 == 0 and 64 <= c <= c_max, f"C={c} must be a multiple of 64 up to {c_max}")
+
+
+def _vec(t: torch.Tensor, n: int, dtype, device) -> torch.Tensor:
+    _cuda.require(t.numel() == n and t.device == device, f"vector of {n} expected on {device}")
+    return t.to(dtype).contiguous()
+
+
+def fused_ln_ffn(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma=None, eps=1e-6):
+    """Fused residual + gamma * (GELU_tanh(LN(x) W1^T + b1) W2^T + b2) over (M, C) rows.
+
+    gamma=None is the transformer FFN (gamma = 1, residual = x); the Vocos
+    ConvNeXt chain passes its layer scale and the block input as residual.
+    """
+    if x.device.type == "cpu":
+        return fused_ln_ffn_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
+    _check_rows(x, residual)
+    m, c = x.shape
+    inter = w1.shape[0]
+    _cuda.require(inter % 32 == 0 and w1.shape == (inter, c) and w2.shape == (c, inter),
+                  f"W1 must be (I, C) and W2 (C, I) with I a multiple of 32, got {tuple(w1.shape)}, {tuple(w2.shape)}")
+    dev, dt = x.device, x.dtype
+    w1c, w2c = w1.to(dt).contiguous(), w2.to(dt).contiguous()
+    args = [_vec(ln_w, c, dt, dev), _vec(ln_b, c, dt, dev), w1c, _vec(b1, inter, dt, dev), w2c,
+            _vec(b2, c, dt, dev), _gamma(gamma, x).contiguous()]
+    out = torch.empty_like(x)
+    _cuda.launch("ln_ffn", "ln_ffn_bf16", f"ln_ffn_bf16:{c}x{inter}", _cuda.ptr(x), _cuda.ptr(residual),
+                 *map(_cuda.ptr, args), _cuda.ptr(out), _cuda.c_int(m), _cuda.c_int(c), _cuda.c_int(inter),
+                 _cuda.c_float(eps), _cuda.stream(dev))
+    return out
+
+
+def fused_convnext_ffn(xdw: torch.Tensor, residual: torch.Tensor, block, eps: float = 1e-6) -> torch.Tensor:
+    """ConvNeXt pointwise chain of one Vocos block (norm, pwconv1, pwconv2, gamma)."""
+    return fused_ln_ffn(xdw, residual, block.norm.weight, block.norm.bias,
+                        block.pwconv1.weight, block.pwconv1.bias, block.pwconv2.weight, block.pwconv2.bias,
+                        block.gamma, eps=eps)
+
+
+def fused_ln_ffn_int8(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma=None, eps=1e-6):
+    """int8 ``fused_ln_ffn`` with pre-quantised weights (ops/quant.py) and
+    per-row dynamic activation quantisation inside the kernel."""
+    if x.device.type == "cpu":
+        return fused_ln_ffn_int8_plain(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps)
+    _check_rows(x, residual)
+    m, c = x.shape
+    inter = w1q.shape[0]
+    _cuda.require(inter % 64 == 0 and w1q.shape == (inter, c) and w2q.shape == (c, inter)
+                  and w1q.dtype == torch.int8 and w2q.dtype == torch.int8
+                  and w1q.is_contiguous() and w2q.is_contiguous(),
+                  "W1q must be contiguous int8 (I, C) and W2q (C, I), I a multiple of 64")
+    dev, dt = x.device, x.dtype
+    args = [_vec(ln_w, c, dt, dev), _vec(ln_b, c, dt, dev), w1q, _vec(s1, inter, torch.float32, dev),
+            _vec(b1, inter, dt, dev), w2q, _vec(s2, c, torch.float32, dev), _vec(b2, c, dt, dev),
+            _gamma(gamma, x).contiguous()]
+    out = torch.empty_like(x)
+    _cuda.launch("ln_ffn_int8", "ln_ffn_int8", f"ln_ffn_int8:{c}x{inter}", _cuda.ptr(x), _cuda.ptr(residual),
+                 *map(_cuda.ptr, args), _cuda.ptr(out), _cuda.c_int(m), _cuda.c_int(c), _cuda.c_int(inter),
+                 _cuda.c_float(eps), _cuda.stream(dev))
+    return out

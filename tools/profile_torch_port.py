@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of the PyTorch port's codec stages on one GPU.
+
+Builds the full-width codec (config/SimWhisperCodec.yaml, random weights
+from a fixed seed), warms it, then traces one tokenize and one detokenize of
+a batch of 8 x 30 s with ``torch.profiler`` for each requested mode.  Prints
+per stage: host wall time of an untraced call, summed device time of the
+traced call, the device's idle share (1 - device time / untraced wall time;
+one stream, so kernels do not overlap) and the kernels that take the most
+device time, and the device time of these groups: the three hand kernels,
+host-to-device copies, and cuBLAS/cuDNN GEMMs.  The full table goes to
+``<out_dir>/profile_<mode>.json``.
+
+Run from the repository root on the machine with the GPU:
+    python3 tools/profile_torch_port.py [--out_dir profiles]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+# kernel-name fragments of each reported group
+GROUPS = {
+    "B1 pflash": ("pflash_kernel",),
+    "B2 ln_ffn": ("ln_ffn_kernel<",),
+    "B3 ln_ffn_int8": ("ln_ffn_int8_kernel<",),
+    "host-to-device copies": ("Memcpy HtoD",),
+    "GEMMs": ("gemm", "nvjet"),
+}
+
+
+def device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
+
+
+def profile_stage(torch, fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): the CPU ops that launched
+    # them carry the same time and would count it twice
+    rows = [(e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0 and not e.key.startswith("Activity Buffer")]
+    if not rows:
+        raise RuntimeError("the trace holds no device time")
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    groups = {g: sum(ms for k, ms, _ in rows if any(f in k for f in frags)) for g, frags in GROUPS.items()}
+    return {"wall_ms": plain_wall_ms, "traced_wall_ms": wall_ms, "device_ms": busy_ms,
+            "idle_share": max(0.0, 1.0 - busy_ms / plain_wall_ms),
+            "device_launches": sum(c for _, _, c in rows), "groups_ms": groups,
+            "kernels": [{"name": k, "device_ms": ms, "calls": c} for k, ms, c in rows]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out_dir", default="profiles", help="where the per-mode JSON tables go")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_port: no CUDA device", file=sys.stderr)
+        return 2
+    from simwhisper_codec_tpu_torch.config import load_config
+    from simwhisper_codec_tpu_torch.models.codec import AudioCodec, init_params
+    from simwhisper_codec_tpu_torch.ops import _cuda
+
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[gpu] {gpu}; torch {torch.__version__}", flush=True)
+    _cuda.build_kernels()
+    cfg = load_config("config/SimWhisperCodec.yaml")
+    model = init_params(cfg, torch.Generator().manual_seed(0))
+    wav = np.random.default_rng(0).standard_normal((8, cfg.chunk_samples)).astype(np.float32) * 0.1
+    lens = np.full(8, cfg.chunk_samples)
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for mode in ("fast-int8", "fast", "parity"):
+        codec = AudioCodec(cfg, model, batch_size=8, mode=mode, device="cuda")
+        tok = codec.inference_tokenize(wav, lens)  # warm-up of both stages
+        codes, clen = tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy()
+        codec.inference_detokenize(codes, clen)
+        result = {"gpu": gpu, "mode": mode, "batch": 8, "seconds_per_item": cfg.max_audio_seconds,
+                  "tokenize": profile_stage(torch, lambda: codec.inference_tokenize(wav, lens)),
+                  "detokenize": profile_stage(torch, lambda: codec.inference_detokenize(codes, clen))}
+        (out_dir / f"profile_{mode}.json").write_text(json.dumps(result, indent=1))
+        for stage in ("tokenize", "detokenize"):
+            r = result[stage]
+            print(f"[{mode}/{stage}] wall {r['wall_ms']:.3f} ms (traced {r['traced_wall_ms']:.3f}), "
+                  f"device {r['device_ms']:.3f} ms in {r['device_launches']} launches, "
+                  f"idle share {r['idle_share']:.3f}", flush=True)
+            print(f"    groups (ms): {json.dumps({g: round(v, 3) for g, v in r['groups_ms'].items()})}", flush=True)
+            for k in r["kernels"][:12]:
+                print(f"    {k['device_ms']:9.3f} ms  {k['calls']:5d}x  {k['name'][:110]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
