@@ -2,14 +2,20 @@
 """Drive the PyTorch/CUDA port (``simwhisper_codec_tpu_torch``) on one GPU.
 
 Phases, any failure exits non-zero:
-  1. build the CUDA kernels of ``simwhisper_codec_tpu_torch/csrc`` with nvcc (sm_90a);
-  2. hold each kernel against its plain PyTorch version at the main path's
+  1. build the five CUDA kernels of ``simwhisper_codec_tpu_torch/csrc`` with
+     nvcc (sm_90a), one nvcc each, in parallel;
+  2. hold each kernel against its plain PyTorch version at the main paths'
      shapes (batch 8, bf16) and time kernel, plain version and, where one
      exists, a single PyTorch library call computing the same function;
   3. run full-width random weights (config/SimWhisperCodec.yaml, fixed seed)
-     through ``AudioCodec.encode`` + ``decode`` in parity, fast and fast-int8,
-     with launch counts read around each mode's run;
-  4. start the port's HTTP server (fast-int8) and send it requests;
+     through ``AudioCodec.encode`` + ``decode`` in parity, fast, fast-int8
+     and fast with the flash attention core and the whole-block Vocos kernel
+     (``attn_impl="flash", vocos_impl="fused-dw"``), with launch counts read
+     around each run; then one fast-int8 encode + decode on the pcm16 wire;
+  4. start the port's HTTP server twice (fast-int8; float32 and pcm16 wire)
+     and send them requests, while the batch CLI
+     (``python -m simwhisper_codec_tpu_torch.inference``) turns two WAVs into
+     reconstructions from a saved reference-layout checkpoint;
   5. print the kernel table, the GPU's name and power limit, and the result.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -23,7 +29,9 @@ import json
 import socket
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -31,6 +39,13 @@ H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12
 H100_BYTES_PER_S = 3.35e12
 UTTERANCE_SECONDS = (4.0, 17.0, 41.0)  # 41 s crosses the 20 s chunk stride twice
+# label -> AudioCodec arguments of each full-width run of phase 3
+RUNS = {
+    "parity": {"mode": "parity"},
+    "fast": {"mode": "fast"},
+    "fast-int8": {"mode": "fast-int8"},
+    "fast-flash-dw": {"mode": "fast", "attn_impl": "flash", "vocos_impl": "fused-dw"},
+}
 
 
 def log(msg: str) -> None:
@@ -77,17 +92,45 @@ def compare(torch, name, got, want, atol, rtol=1.6e-2) -> float:
 
 
 def check_kernel(torch, name, kernel, plain, args, atol, rtol, flops, peak, nbytes, replaces, source,
-                 library=None, iters=20):
+                 library=None, iters=20, **extra_ms):
+    """Compare and time one kernel; ``extra_ms`` names further calls timed for context."""
     max_err = compare(torch, name, kernel(*args), plain(*args), atol, rtol)
     ms = time_ms(torch, lambda: kernel(*args), iters)
     plain_ms = time_ms(torch, lambda: plain(*args), max(2, iters // 4))
     lib_ms = time_ms(torch, library, iters) if library is not None else None
+    extra = {key: time_ms(torch, fn, iters) for key, fn in extra_ms.items()}
     b_ms, b_by = bound_ms(flops, peak, nbytes)
-    log(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms}, "
+    log(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms}, {extra}, "
         f"bound {b_ms:.4f} ms ({b_by}), flops={flops:.4g}, bytes={nbytes:.4g}")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, **extra}
+
+
+def random_block(torch, randn, c, inter):
+    """A Vocos ConvNeXt block on the GPU with random weights of realistic scale."""
+    from simwhisper_codec_tpu_torch.models.vocos import ConvNeXtBlock
+
+    block = ConvNeXtBlock(c, inter, 1.0 / 24).to(randn(1).device)
+    f32 = torch.float32
+    with torch.no_grad():
+        block.dwconv.weight.copy_(randn(c, 1, 7, scale=0.2, dtype=f32))
+        block.dwconv.bias.copy_(randn(c, scale=0.02, dtype=f32))
+        block.norm.weight.copy_(randn(c, scale=0.1, dtype=f32) + 1.0)
+        block.norm.bias.copy_(randn(c, scale=0.1, dtype=f32))
+        block.pwconv1.weight.copy_(randn(inter, c, scale=c ** -0.5, dtype=f32))
+        block.pwconv1.bias.copy_(randn(inter, scale=0.02, dtype=f32))
+        block.pwconv2.weight.copy_(randn(c, inter, scale=inter ** -0.5, dtype=f32))
+        block.pwconv2.bias.copy_(randn(c, scale=0.02, dtype=f32))
+        block.gamma.copy_(randn(c, scale=0.01, dtype=f32) + 1.0 / 24)
+    return block
+
+
+def head_views(qkv, heads: int):
+    """(B, T, 3D) packed projections -> (B, H, T, hd) q, k, v views by stride,
+    as ``varlen_attention_flash`` hands them to the B5 kernel."""
+    d = qkv.shape[-1] // 3
+    return [qkv[..., i * d:(i + 1) * d].unflatten(-1, (heads, d // heads)).transpose(1, 2) for i in range(3)]
 
 
 def kernel_phase(torch):
@@ -112,12 +155,21 @@ def kernel_phase(torch):
     kv = [int(n) if n > 0 else t for n in lengths.tolist()]
     flops = sum(4.0 * h * t * n * hd for n in kv)
     nbytes = qkv.numel() * 2 + b * t * d * 2 + lengths.numel() * 4
-    q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, t, h, hd).transpose(1, 2) for i in range(3))
+    q, k, v = head_views(qkv, h)
     key_mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
+    # the library yardstick: SDPA on the same (B, H, T, hd) views, boolean
+    # key mask, no further scaling (q is pre-scaled)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=key_mask, scale=1.0)
     rows.append(check_kernel(torch, "pflash_attention", fa.fused_qkv_attention, fa.fused_qkv_attention_plain,
                              (qkv, lengths, h), 1e-2, 1.6e-2, flops, H100_BF16_FLOPS, nbytes,
                              "simwhisper_codec_tpu/ops/flash_attention.py:162", "simwhisper_codec_tpu_torch/csrc/pflash.cu",
+                             library=sdpa))
+    # B5: the same work on (B, H, T, hd) views of the packed projections; its
+    # bf16 weights are rounded after normalisation, so one bf16 output ulp
+    # (atol 1e-2 + two half-ulps) bounds the kernel vs plain difference, as for B1
+    rows.append(check_kernel(torch, "flash_attention", fa.flash_attention, fa.flash_attention_plain,
+                             (q, k, v, lengths), 1e-2, 1.6e-2, flops, H100_BF16_FLOPS, nbytes,
+                             "simwhisper_codec_tpu/ops/flash_attention.py:62", "simwhisper_codec_tpu_torch/csrc/flash.cu",
                              library=sdpa))
 
     # Tolerances: bf16 outputs are compared as |d| <= atol + 1.6e-2 |plain|
@@ -152,6 +204,28 @@ def kernel_phase(torch):
                                  H100_INT8_OPS, act_bytes + 2 * c * inter + (inter + c) * 4 + (2 * c + inter) * 2,
                                  "simwhisper_codec_tpu/ops/fused_convnext.py:296",
                                  "simwhisper_codec_tpu_torch/csrc/ln_ffn_int8.cu", iters=10))
+    # B4: the whole Vocos ConvNeXt block at the Vocos shape, the virtual
+    # right edge inside the last tile; same bf16 tolerance as B2 (the f32
+    # depthwise sum and LN agree to f32 rounding, the rest is B2's chain)
+    t4, c, inter = 3000, 512, 4096
+    x4 = randn(8, t4, c)
+    block = random_block(torch, randn, c, inter)
+    fv = 2875
+
+    def two_step():  # plain depthwise shift-FMAs, then B2: the fused-vocos path
+        from simwhisper_codec_tpu_torch.ops.conv import depthwise_conv1d_shifts
+
+        mask = (torch.arange(t4, device=dev) < fv).to(bf)[None, :, None]
+        xdw = depthwise_conv1d_shifts(x4 * mask, block.dwconv.weight[:, 0, :].t(), block.dwconv.bias, padding=3)
+        return fc.fused_convnext_ffn(xdw.reshape(-1, c), x4.reshape(-1, c), block)
+
+    m = 8 * t4
+    rows.append(check_kernel(torch, f"convnext_dw:{c}x{inter}", fc.fused_convnext_block_dw,
+                             fc.fused_convnext_block_dw_plain, (x4, block, fv), 1e-2, 1.6e-2,
+                             4.0 * m * c * inter + 14.0 * m * c, H100_BF16_FLOPS,
+                             2 * m * c * 2 + 2 * c * inter * 2 + (7 * c + 5 * c + inter) * 2,
+                             "simwhisper_codec_tpu/ops/fused_convnext.py:195",
+                             "simwhisper_codec_tpu_torch/csrc/convnext_dw.cu", iters=10, two_step_ms=two_step))
     check_other_shapes(torch, randn, fa, fc, quantize_weight)
     return rows
 
@@ -159,13 +233,20 @@ def kernel_phase(torch):
 def check_other_shapes(torch, randn, fa, fc, quantize_weight):
     """The kernels' other instantiations (head dims 16/32/128, narrow C, ragged
     M) against their plain versions at small shapes; no timing."""
-    dev = torch.device("cuda")
+    dev = randn(1).device
     agree = lambda name, got, want, atol: compare(torch, name, got, want, atol)
     lengths = torch.tensor([203, 77, 0], dtype=torch.int32, device=dev)
     for hd in (16, 32, 128):
         qkv = randn(3, 203, 3 * 4 * hd)
         args = (qkv, lengths, 4)
         agree(f"pflash_attention hd={hd}", fa.fused_qkv_attention(*args), fa.fused_qkv_attention_plain(*args), 1e-2)
+        args = (*head_views(qkv, 4), lengths)
+        agree(f"flash_attention hd={hd}", fa.flash_attention(*args), fa.flash_attention_plain(*args), 1e-2)
+    for c, inter in ((64, 128), (256, 192)):  # ragged T = 203, the edge at 150 inside a tile
+        x, block = randn(2, 203, c), random_block(torch, randn, c, inter)
+        for fv in (None, 150):
+            agree(f"convnext_dw:{c}x{inter} frame_valid={fv}", fc.fused_convnext_block_dw(x, block, fv),
+                  fc.fused_convnext_block_dw_plain(x, block, fv), 1e-2)
     for c, inter in ((64, 128), (256, 192)):
         x, res = randn(301, c), randn(301, c)
         w1 = randn(inter * 2, c, scale=c ** -0.5, dtype=torch.float32)[:inter]
@@ -179,15 +260,19 @@ def check_other_shapes(torch, randn, fa, fc, quantize_weight):
             agree(f"ln_ffn_int8:{c}x{inter}", fc.fused_ln_ffn_int8(*args), fc.fused_ln_ffn_int8_plain(*args), 4e-2)
 
 
-def expected_launches(mode: str, cfg, n_tok: int, n_detok: int) -> dict:
+def expected_launches(label: str, cfg, n_tok: int, n_detok: int) -> dict:
     enc, dec, voc = cfg.acoustic_encoder, cfg.acoustic_decoder, cfg.vocos
     tshape = f"{enc.d_model}x{enc.encoder_ffn_dim}"
     vshape = f"{voc.dim}x{voc.intermediate_dim}"
-    if mode == "parity":
+    if label == "parity":
         return {}
-    want = {"pflash_attention": n_tok * enc.encoder_layers + n_detok * dec.decoder_layers}
-    if mode == "fast":
-        want[f"ln_ffn_bf16:{tshape}"] = n_tok * enc.encoder_layers + n_detok * dec.decoder_layers
+    attn = n_tok * enc.encoder_layers + n_detok * dec.decoder_layers
+    if label == "fast-flash-dw":
+        return {"flash_attention": attn, f"ln_ffn_bf16:{tshape}": attn,
+                f"convnext_dw:{vshape}": n_detok * voc.num_layers}
+    want = {"pflash_attention": attn}
+    if label == "fast":
+        want[f"ln_ffn_bf16:{tshape}"] = attn
         want[f"ln_ffn_bf16:{vshape}"] = n_detok * voc.num_layers
     else:
         want[f"ln_ffn_bf16:{tshape}"] = n_tok * enc.encoder_layers
@@ -196,16 +281,14 @@ def expected_launches(mode: str, cfg, n_tok: int, n_detok: int) -> dict:
     return want
 
 
-def codec_phase(torch):
-    from simwhisper_codec_tpu_torch.config import load_config
-    from simwhisper_codec_tpu_torch.models.codec import AudioCodec, init_params
+def share_equal(a_list, b_list) -> float:
+    return float(np.mean(np.concatenate([(a == b).ravel() for a, b in zip(a_list, b_list)])))
+
+
+def codec_phase(torch, cfg, model):
+    from simwhisper_codec_tpu_torch.models.codec import AudioCodec
     from simwhisper_codec_tpu_torch.ops import _cuda
 
-    cfg = load_config("config/SimWhisperCodec.yaml")
-    t0 = time.perf_counter()
-    model = init_params(cfg, torch.Generator().manual_seed(0))
-    log(f"[codec] full-width random weights: {sum(p.numel() for p in model.parameters())} parameters, "
-        f"init {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     sr = cfg.input_sample_rate
     utts = [(rng.standard_normal(int(s * sr)) * 0.1).astype(np.float32) for s in UTTERANCE_SECONDS]
@@ -215,9 +298,9 @@ def codec_phase(torch):
     n_tok = n_chunks(longest, (cfg.max_audio_seconds - 10) * sr)
     n_detok = n_chunks(longest // cfg.encoder_downsample_rate, (cfg.max_audio_seconds - 10) * sr // cfg.encoder_downsample_rate)
 
-    results, codes_by_mode, launches_by_mode = {}, {}, {}
-    for mode in ("parity", "fast", "fast-int8"):
-        codec = AudioCodec(cfg, model, batch_size=8, mode=mode, device="cuda")
+    results, codes_by_run, launches_by_run, codecs = {}, {}, {}, {}
+    for label, kwargs in RUNS.items():
+        codec = codecs[label] = AudioCodec(cfg, model, batch_size=8, device="cuda", **kwargs)
         codec.decode(codec.encode([utts[0][:sr]])["codes_list"])  # warm-up, not counted
         # stage times on one full batch of 8 x 30 s
         stage = {}
@@ -230,7 +313,7 @@ def codec_phase(torch):
             codec.inference_detokenize(tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy())
             torch.cuda.synchronize()
             stage = {"tokenize_ms": (t1 - t0) * 1e3, "detokenize_ms": (time.perf_counter() - t1) * 1e3}
-        # the main path: chunked encode + decode of the utterances
+        # the path under test: chunked encode + decode of the utterances
         _cuda.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -241,23 +324,50 @@ def codec_phase(torch):
         launches = dict(_cuda.launch_counts)
         for u, c, y in zip(utts, enc, dec):
             n = len(u) // cfg.encoder_downsample_rate
-            assert c.shape == (cfg.quantizer.num_groups, n), (mode, c.shape)
-            assert y.shape == (n * cfg.decoder_upsample_rate,), (mode, y.shape)
-            assert np.isfinite(y).all(), f"{mode}: non-finite waveform"
-        want = expected_launches(mode, cfg, n_tok, n_detok)
-        assert launches == want, f"{mode}: launches {launches} != expected {want}"
+            assert c.shape == (cfg.quantizer.num_groups, n), (label, c.shape)
+            assert y.shape == (n * cfg.decoder_upsample_rate,), (label, y.shape)
+            assert np.isfinite(y).all(), f"{label}: non-finite waveform"
+        want = expected_launches(label, cfg, n_tok, n_detok)
+        assert launches == want, f"{label}: launches {launches} != expected {want}"
         batch_rt = 8 * cfg.max_audio_seconds / ((stage["tokenize_ms"] + stage["detokenize_ms"]) / 1e3)
-        results[mode] = {"round_trip_x_real_time": sum(UTTERANCE_SECONDS) / wall, "wall_s": wall,
-                         "batch8_x_real_time": batch_rt, **stage, "launches": launches}
-        codes_by_mode[mode] = enc
-        launches_by_mode[mode] = launches
-        log(f"[codec] {mode}: {json.dumps(results[mode])}")
-    for a, b in zip(codes_by_mode["fast-int8"], codes_by_mode["fast"]):
+        results[label] = {"round_trip_x_real_time": sum(UTTERANCE_SECONDS) / wall, "wall_s": wall,
+                          "batch8_x_real_time": batch_rt, **stage, "launches": launches}
+        codes_by_run[label] = enc
+        launches_by_run[label] = launches
+        log(f"[codec] {label}: {json.dumps(results[label])}")
+    for a, b in zip(codes_by_run["fast-int8"], codes_by_run["fast"]):
         assert np.array_equal(a, b), "fast-int8 codes differ from fast codes"
-    agree = float(np.mean(np.concatenate([(a == b).ravel() for a, b in
-                                          zip(codes_by_mode["fast"], codes_by_mode["parity"])])))
-    log(f"[codec] fast-int8 codes == fast codes; fast vs parity code agreement {agree:.4f}")
-    return launches_by_mode
+    log(f"[codec] fast-int8 codes == fast codes; code agreement: fast vs parity "
+        f"{share_equal(codes_by_run['fast'], codes_by_run['parity']):.4f}, fast-flash-dw vs fast "
+        f"{share_equal(codes_by_run['fast-flash-dw'], codes_by_run['fast']):.4f}")
+    pcm16_check(torch, cfg, model, codecs["fast-int8"], utts)
+    return launches_by_run
+
+
+def pcm16_check(torch, cfg, model, codec_f32, utts):
+    """fast-int8 on the pcm16 wire: codes equal the float wire's for input on
+    the 16-bit grid, and the int16 waveforms equal the float ones quantised on
+    the host.  cuDNN is held to deterministic algorithms so that the two
+    codecs' runs can be compared bit for bit."""
+    from simwhisper_codec_tpu_torch.models.codec import AudioCodec
+    from simwhisper_codec_tpu_torch.utils.audio_io import to_pcm16
+
+    codec_pcm = AudioCodec(cfg, model, batch_size=8, mode="fast-int8", device="cuda", wire="pcm16")
+    grid = [to_pcm16(u).astype(np.float32) / 32768.0 for u in utts]
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        codes = codec_f32.encode(grid)["codes_list"]
+        for a, b in zip(codes, codec_pcm.encode(grid)["codes_list"]):
+            assert np.array_equal(a, b), "pcm16-wire codes differ from float-wire codes"
+        y_f32 = codec_f32.decode(codes)["syn_wav_list"]
+        y_pcm = codec_pcm.decode(codes)["syn_wav_list"]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    for a, b in zip(y_f32, y_pcm):
+        assert b.dtype == np.int16 and np.array_equal(b, to_pcm16(a)), "pcm16 decode != host-quantised float decode"
+    log(f"[codec] pcm16 wire (fast-int8): codes == float-wire codes, int16 waveforms == host-quantised "
+        f"float waveforms ({sum(len(y) for y in y_pcm)} samples)")
 
 
 def free_port() -> int:
@@ -276,59 +386,124 @@ def request(port, method, path, body=None, headers=None, timeout=300):
         conn.close()
 
 
-def serve_phase():
+def start_server(wire: str):
     port = free_port()
     proc = subprocess.Popen([sys.executable, "-m", "simwhisper_codec_tpu_torch.serve", "--port", str(port),
-                             "--mode", "fast-int8", "--max_body_mb", "1"])
+                             "--mode", "fast-int8", "--max_body_mb", "1", "--wire", wire])
+    return proc, port
+
+
+def wait_healthy(proc, port, deadline):
+    while True:
+        if proc.poll() is not None:
+            raise RuntimeError(f"server exited with {proc.returncode}")
+        try:
+            status, _, _ = request(port, "GET", "/healthz", timeout=5)
+            if status == 200:
+                return
+        except OSError:
+            pass
+        if time.time() > deadline:
+            raise TimeoutError("server did not come up")
+        time.sleep(1)
+
+
+def serve_checks(port):
+    wav = (np.random.default_rng(3).standard_normal(3 * 16000) * 0.1).astype(np.float32)
+    status, hdr, body = request(port, "POST", "/encode", wav.tobytes())
+    assert status == 200, (status, body[:200])
+    shape = tuple(int(v) for v in hdr["X-Code-Shape"].split(","))
+    assert shape == (8, len(wav) // 1280), shape
+    codes = np.frombuffer(body, np.int32).reshape(shape)
+    status, _, body = request(port, "POST", "/decode", codes.tobytes(), {"X-Code-Shape": f"{shape[0]},{shape[1]}"})
+    out = np.frombuffer(body, np.float32)
+    assert status == 200 and out.shape == (shape[1] * 1280,) and np.isfinite(out).all(), (status, out.shape)
+    status, _, body = request(port, "POST", "/reconstruct", wav.tobytes())
+    out2 = np.frombuffer(body, np.float32)
+    assert status == 200 and out2.shape == out.shape and np.isfinite(out2).all(), (status, out2.shape)
+    # a body over the 1 MiB cap is refused from its Content-Length alone,
+    # so only the headers are sent (the server never reads the body)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
     try:
-        deadline = time.time() + 300
-        while True:
-            if proc.poll() is not None:
-                raise RuntimeError(f"server exited with {proc.returncode}")
-            try:
-                status, _, _ = request(port, "GET", "/healthz", timeout=5)
-                if status == 200:
-                    break
-            except OSError:
-                pass
-            if time.time() > deadline:
-                raise TimeoutError("server did not come up")
-            time.sleep(1)
-        wav = (np.random.default_rng(3).standard_normal(3 * 16000) * 0.1).astype(np.float32)
-        status, hdr, body = request(port, "POST", "/encode", wav.tobytes())
-        assert status == 200, (status, body[:200])
-        shape = tuple(int(v) for v in hdr["X-Code-Shape"].split(","))
-        assert shape == (8, len(wav) // 1280), shape
-        codes = np.frombuffer(body, np.int32).reshape(shape)
-        status, _, body = request(port, "POST", "/decode", codes.tobytes(), {"X-Code-Shape": f"{shape[0]},{shape[1]}"})
-        out = np.frombuffer(body, np.float32)
-        assert status == 200 and out.shape == (shape[1] * 1280,) and np.isfinite(out).all(), (status, out.shape)
-        status, _, body = request(port, "POST", "/reconstruct", wav.tobytes())
-        out2 = np.frombuffer(body, np.float32)
-        assert status == 200 and out2.shape == out.shape and np.isfinite(out2).all(), (status, out2.shape)
-        # a body over the 1 MiB cap is refused from its Content-Length alone,
-        # so only the headers are sent (the server never reads the body)
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-        try:
-            conn.putrequest("POST", "/encode")
-            conn.putheader("Content-Length", str(2 << 20))
-            conn.endheaders()
-            status = conn.getresponse().status
-        finally:
-            conn.close()
-        assert status == 413, status
-        status, _, body = request(port, "GET", "/healthz")
-        health = json.loads(body)
-        assert status == 200 and health["served"] >= 3, health
-        log(f"[serve] /encode {shape}, /decode {out.shape}, /reconstruct {out2.shape}, 413 on a 2 MiB body, "
-            f"/healthz {health}")
+        conn.putrequest("POST", "/encode")
+        conn.putheader("Content-Length", str(2 << 20))
+        conn.endheaders()
+        status = conn.getresponse().status
     finally:
-        proc.terminate()
+        conn.close()
+    assert status == 413, status
+    status, _, body = request(port, "GET", "/healthz")
+    health = json.loads(body)
+    assert status == 200 and health["served"] >= 3, health
+    log(f"[serve] /encode {shape}, /decode {out.shape}, /reconstruct {out2.shape}, 413 on a 2 MiB body, "
+        f"/healthz {health}")
+
+
+def serve_pcm16_check(port):
+    wav = (np.random.default_rng(4).standard_normal(5 * 16000) * 0.1).astype(np.float32)
+    status, _, body = request(port, "POST", "/reconstruct", wav.tobytes())
+    out = np.frombuffer(body, np.float32)
+    assert status == 200 and out.shape == (len(wav) // 1280 * 1280,) and np.isfinite(out).all(), (status, out.shape)
+    assert np.array_equal(out * 32768.0, np.round(out * 32768.0)), "pcm16-wire output is off the 16-bit grid"
+    log(f"[serve] --wire pcm16: /reconstruct {out.shape} on the 16-bit grid")
+
+
+def write_inputs(torch, model, tmp: Path, sr: int) -> dict:
+    """A reference-layout checkpoint of ``model`` and two WAVs for the CLI."""
+    from simwhisper_codec_tpu_torch.utils.audio_io import save_audio
+
+    torch.save({"model": model.state_dict()}, tmp / "ckpt.pt")
+    (tmp / "in").mkdir()
+    rng = np.random.default_rng(5)
+    lengths = {"short": 3 * sr, "long": 41 * sr}
+    for stem, n in lengths.items():
+        save_audio(tmp / "in" / f"{stem}.wav", (rng.standard_normal(n) * 0.1).astype(np.float32), sr)
+    return lengths
+
+
+def check_cli_outputs(tmp: Path, lengths: dict, sr: int) -> None:
+    from simwhisper_codec_tpu_torch.utils.audio_io import load_audio
+
+    names = sorted(p.name for p in (tmp / "out").iterdir())
+    assert names == sorted(f"{stem}.wav" for stem in lengths), names
+    for stem, n in lengths.items():
+        y = load_audio(tmp / "out" / f"{stem}.wav", sr)
+        assert y.shape == (n // 1280 * 1280,) and np.isfinite(y).all(), (stem, y.shape)
+    log(f"[cli] python -m simwhisper_codec_tpu_torch.inference --mode fast: wrote {names}")
+
+
+def serve_and_cli_phase(torch, cfg, model):
+    """Both servers and the CLI start at once (each pays its own start-up);
+    the checks then run against each, and every process is stopped."""
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        lengths = write_inputs(torch, model, tmp, cfg.input_sample_rate)
         try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+            servers = {wire: start_server(wire) for wire in ("float32", "pcm16")}
+            procs += [proc for proc, _ in servers.values()]
+            cli = subprocess.Popen([sys.executable, "-m", "simwhisper_codec_tpu_torch.inference", "--mode", "fast",
+                                    "--config_path", "config/SimWhisperCodec.yaml",
+                                    "--checkpoint_path", str(tmp / "ckpt.pt"), "--input_dir", str(tmp / "in"),
+                                    "--output_dir", str(tmp / "out")])
+            procs.append(cli)
+            deadline = time.time() + 300
+            for proc, port in servers.values():
+                wait_healthy(proc, port, deadline)
+            serve_checks(servers["float32"][1])
+            serve_pcm16_check(servers["pcm16"][1])
+            if cli.wait(timeout=max(1.0, deadline - time.time())) != 0:
+                raise RuntimeError(f"inference CLI exited with {cli.returncode}")
+            check_cli_outputs(tmp, lengths, cfg.input_sample_rate)
+        finally:
+            for proc in procs:
+                proc.terminate()
+            for proc in procs:
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
 
 
 def main() -> int:
@@ -338,16 +513,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from simwhisper_codec_tpu_torch.config import load_config
+    from simwhisper_codec_tpu_torch.models.codec import init_params
     from simwhisper_codec_tpu_torch.ops import _cuda
 
     log(f"[gpu] {gpu_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    log(f"[build] kernels built in {_cuda.build_kernels():.1f} s")
-    rows = kernel_phase(torch)
-    launches = codec_phase(torch)
-    for row in rows:  # launches on the serving default's path, else on fast mode's
-        row["launches"] = launches["fast-int8"].get(row["name"]) or launches["fast"].get(row["name"], 0)
-        row["launches_by_mode"] = {m: launches[m].get(row["name"], 0) for m in launches}
-    serve_phase()
+    log(f"[build] {len(_cuda.SOURCES)} kernels built in {_cuda.build_kernels():.1f} s")
+    with torch.no_grad():
+        rows = kernel_phase(torch)
+    cfg = load_config("config/SimWhisperCodec.yaml")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator().manual_seed(0))
+    log(f"[codec] full-width random weights: {sum(p.numel() for p in model.parameters())} parameters, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    launches = codec_phase(torch, cfg, model)
+    for row in rows:  # launches on the serving default's path, else on the first run that launched it
+        row["launches"] = next((launches[r][row["name"]] for r in ("fast-int8", "fast", "fast-flash-dw")
+                                if launches[r].get(row["name"])), 0)
+        row["launches_by_run"] = {r: launches[r].get(row["name"], 0) for r in launches}
+    serve_and_cli_phase(torch, cfg, model)
     print(gpu_line())  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

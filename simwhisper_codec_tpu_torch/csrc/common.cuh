@@ -68,20 +68,18 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// LayerNorm of one C-wide bf16 row by one warp, f32 statistics as in the
-// JAX kernels: mean, then the mean of squared deviations, rsqrt(var + eps),
-// then scale and shift.  Lane l holds elements l, l + 32, ... in v[].
+// LayerNorm of one C-wide f32 row held by one warp, f32 statistics as in
+// the JAX kernels: mean, then the mean of squared deviations,
+// rsqrt(var + eps), then scale and shift.  Lane l holds elements l, l + 32,
+// ... in v[], which is normalised in place.
 template <int VPL>
-__device__ __forceinline__ void warp_layer_norm(const bf16* row, const bf16* ln_w, const bf16* ln_b,
-                                                float eps, bool valid, float v[VPL]) {
+__device__ __forceinline__ void warp_layer_norm_regs(float v[VPL], const bf16* ln_w, const bf16* ln_b,
+                                                     float eps) {
   constexpr int C = VPL * 32;
   const int lane = threadIdx.x & 31;
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    v[i] = valid ? bf(row[lane + 32 * i]) : 0.f;
-    s += v[i];
-  }
+  for (int i = 0; i < VPL; ++i) s += v[i];
   const float mean = warp_sum(s) / C;
   float q = 0.f;
 #pragma unroll
@@ -95,4 +93,14 @@ __device__ __forceinline__ void warp_layer_norm(const bf16* row, const bf16* ln_
     const int c = lane + 32 * i;
     v[i] = (v[i] - mean) * rstd * bf(ln_w[c]) + bf(ln_b[c]);
   }
+}
+
+// The same LayerNorm of one C-wide bf16 row (zeros where !valid).
+template <int VPL>
+__device__ __forceinline__ void warp_layer_norm(const bf16* row, const bf16* ln_w, const bf16* ln_b,
+                                                float eps, bool valid, float v[VPL]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) v[i] = valid ? bf(row[lane + 32 * i]) : 0.f;
+  warp_layer_norm_regs<VPL>(v, ln_w, ln_b, eps);
 }

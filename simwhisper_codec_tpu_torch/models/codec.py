@@ -18,8 +18,15 @@ Modes: ``parity`` (f32, dense attention, exact GELU), ``fast`` (bf16, the
 pflash attention kernel and the fused LN-FFN kernel in every transformer FFN
 and Vocos chain), ``fast-int8`` (as ``fast`` for tokenize; the decoder FFNs
 and Vocos chains run the fused int8 kernel, so codes equal ``fast`` codes)
-and ``fast-int8-full`` (int8 FFNs on both sides).  TF32 is off for every
+and ``fast-int8-full`` (int8 FFNs on both sides).  ``attn_impl`` picks the
+attention core (``flash``: kernel B5) and, in ``fast``, ``vocos_impl`` the
+Vocos block (``fused-dw``: kernel B4).  By default TF32 is off for every
 float32 matmul and convolution, the counterpart of ``Precision.HIGHEST``.
+
+The ``wire`` is the host <-> device waveform format: ``float32``, or
+``pcm16``, which ships int16 (dequantised on the device) and brings decoded
+waveforms home as int16 quantised on the device by the ``save_audio``
+formula: half the bytes each way.
 """
 
 from __future__ import annotations
@@ -31,12 +38,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from simwhisper_codec_tpu_torch.config import CodecConfig, load_config
 from simwhisper_codec_tpu_torch.models import sampling, transformer, vocos
 from simwhisper_codec_tpu_torch.ops import fsq, mel
 from simwhisper_codec_tpu_torch.ops.quant import quantize_stacked_convnext, quantize_stacked_ffn
 from simwhisper_codec_tpu_torch.ops.snake import AliasFreeConstants
+from simwhisper_codec_tpu_torch.utils.audio_io import to_pcm16
 
 logger = logging.getLogger(__name__)
 
@@ -130,34 +139,54 @@ def fast_mode_settings() -> dict:
 
 
 MODES = ("parity", "fast", "fast-int8", "fast-int8-full")
+FAST_VOCOS_IMPLS = ("fused", "fused-dw")
+WIRES = ("float32", "pcm16")
+PRECISIONS = ("highest", "default")
 
 
-def mode_programs(mode: str) -> tuple:
-    """(tokenize kwargs, detokenize kwargs) of a serving mode."""
-    if mode == "parity":
-        kw = {"compute_dtype": "float32", "attn_impl": "dense", "ffn_impl": "dense"}
-        return dict(kw), dict(kw, vocos_impl=None)
+def mode_programs(mode: str, attn_impl: Optional[str] = None, vocos_impl: Optional[str] = None) -> tuple:
+    """(tokenize kwargs, detokenize kwargs) of a serving mode.
+
+    ``attn_impl``: ``dense``, ``pflash`` or ``flash`` (default: ``dense`` in
+    parity, ``pflash`` otherwise).  ``vocos_impl``: ``fused`` (default) or
+    ``fused-dw`` in ``fast``; parity runs the exact-GELU chain and takes
+    None; in the int8 modes the int8 chain runs whatever is given, as the
+    JAX package's ``int8_vocos`` does.
+    """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if attn_impl is not None and attn_impl not in transformer.ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {transformer.ATTN_IMPLS}, got {attn_impl!r}")
+    if vocos_impl is not None and (vocos_impl not in FAST_VOCOS_IMPLS or mode == "parity"):
+        raise ValueError(f"vocos_impl must be None or, outside parity mode, one of {FAST_VOCOS_IMPLS}; "
+                         f"got {vocos_impl!r} in mode {mode!r}")
+    if mode == "parity":
+        kw = {"compute_dtype": "float32", "attn_impl": attn_impl or "dense", "ffn_impl": "dense"}
+        return dict(kw), dict(kw, vocos_impl=None)
     fk = fast_mode_settings()
-    base = {"compute_dtype": fk["compute_dtype"], "attn_impl": fk["attn_impl"]}
+    base = {"compute_dtype": fk["compute_dtype"], "attn_impl": attn_impl or fk["attn_impl"]}
     int8 = mode in ("fast-int8", "fast-int8-full")
     tok = dict(base, ffn_impl=fk["int8_ffn_impl"] if mode == "fast-int8-full" else fk["ffn_impl"])
     detok = dict(base, ffn_impl=fk["int8_ffn_impl"] if int8 else fk["ffn_impl"],
-                 vocos_impl=fk["int8_vocos_impl"] if int8 else fk["vocos_impl"])
+                 vocos_impl=fk["int8_vocos_impl"] if int8 else vocos_impl or fk["vocos_impl"])
     return tok, detok
 
 
 @contextlib.contextmanager
-def full_f32_precision():
-    """No TF32 for float32 matmuls or cuDNN convolutions inside the block."""
+def f32_precision(precision: str = "highest"):
+    """TF32 for float32 matmuls and cuDNN convolutions inside the block:
+    off for ``highest`` (the counterpart of ``Precision.HIGHEST``), on for
+    ``default``."""
+    allow = precision == "default"
     prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = allow
     try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                                        deterministic=torch.backends.cudnn.deterministic, allow_tf32=allow):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
 
 
 def resolve_device(device=None) -> torch.device:
@@ -172,13 +201,31 @@ class AudioCodec:
     """User-facing codec with the reference's API shape (chunked encode/decode)."""
 
     def __init__(self, cfg: CodecConfig, model: SimWhisperCodec, batch_size: int = 8,
-                 mode: str = "parity", device=None):
+                 mode: str = "parity", device=None, attn_impl: Optional[str] = None,
+                 vocos_impl: Optional[str] = None, wire: str = "float32", precision: str = "highest"):
         """``model`` is moved to ``device`` (default ``cuda``); int8 modes add
-        the quantised weights to it as non-persistent buffers."""
+        the quantised weights to it as non-persistent buffers.
+
+        ``attn_impl`` and ``vocos_impl``: see ``mode_programs``.  The
+        attention kernels take bf16, so ``pflash`` and ``flash`` in parity
+        mode run on the CPU only.  ``wire``: ``float32`` or ``pcm16`` (see
+        the module docstring).  ``precision``: ``highest`` (no TF32) or
+        ``default`` (TF32 for the float32 matmuls and convolutions)."""
+        if wire not in WIRES:
+            raise ValueError(f"wire must be one of {WIRES}, got {wire!r}")
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
         self.cfg = cfg
         self.mode = mode
+        self.wire = wire
+        self.precision = precision
         self.device = resolve_device(device)
-        self._tok_kw, self._detok_kw = mode_programs(mode)
+        self._tok_kw, self._detok_kw = mode_programs(mode, attn_impl, vocos_impl)
+        if self.device.type == "cuda" and mode == "parity" and self._tok_kw["attn_impl"] != "dense":
+            raise ValueError(f"attn_impl={attn_impl!r} runs a bf16 kernel; parity mode on CUDA takes 'dense'")
+        # transfer granularity of the int16 encode wire: the host pads only to
+        # the next bucket, the device pads to the chunk
+        self._wire_bucket = max(1, cfg.chunk_samples // 10)
         self.model = model.to(self.device).eval()
         if mode in ("fast-int8", "fast-int8-full"):
             quantize_stacked_ffn(self.model.acoustic_decoder.layers)
@@ -200,19 +247,33 @@ class AudioCodec:
 
     @torch.no_grad()
     def inference_tokenize(self, wav: np.ndarray, input_lengths: np.ndarray) -> dict:
-        """wav (B, T <= chunk_samples) float host array -> codes (device tensors)."""
-        wav = np.asarray(wav, np.float32)
+        """wav (B, T <= chunk_samples) host array -> codes (device tensors).
+
+        int16 input is PCM16: it ships as int16, padded on the host only to
+        the next wire bucket, and is dequantised (x / 32768, exact in f32)
+        and padded to the chunk on the device.  On the ``pcm16`` wire float
+        input is first quantised to int16 on the host."""
+        wav = np.asarray(wav)
+        if self.wire == "pcm16" and wav.dtype != np.int16:
+            wav = to_pcm16(wav)
+        if wav.dtype != np.int16:
+            wav = wav.astype(np.float32)
         b, t = wav.shape
         n = self.cfg.chunk_samples
-        wav = np.pad(wav, ((0, 0), (0, n - t))) if t < n else wav[:, :n]
+        target = n
+        if wav.dtype == np.int16:
+            target = min(n, -(-min(t, n) // self._wire_bucket) * self._wire_bucket)
+        wav = np.pad(wav, ((0, 0), (0, target - t))) if t < target else wav[:, :target]
         input_lengths = np.asarray(input_lengths)
         bp = self._pad_batch_dim(b)
         if bp != b:
             wav = np.pad(wav, ((0, bp - b), (0, 0)))
             input_lengths = np.pad(input_lengths, (0, bp - b))
         wav_t = torch.from_numpy(np.ascontiguousarray(wav)).to(self.device)
+        if wav_t.dtype == torch.int16:
+            wav_t = F.pad(wav_t.to(torch.float32) * (1.0 / 32768.0), (0, n - target))
         len_t = torch.from_numpy(input_lengths.astype(np.int64)).to(self.device)
-        with full_f32_precision():
+        with f32_precision(self.precision):
             out = tokenize(self.model, wav_t, len_t, **self._tok_kw)
         if bp != b:  # drop batch-padding rows
             out = {"zq": out["zq"][:b], "codes": out["codes"][:, :b], "codes_lengths": out["codes_lengths"][:b]}
@@ -220,8 +281,11 @@ class AudioCodec:
 
     @torch.no_grad()
     def inference_detokenize(self, codes: np.ndarray, codes_lengths: np.ndarray,
-                             chunk_width: Optional[int] = None) -> dict:
-        """codes (G, B, T <= code_frames) -> waveform (device tensors)."""
+                             chunk_width: Optional[int] = None, out_samples: Optional[int] = None) -> dict:
+        """codes (G, B, T <= code_frames) -> waveform (device tensors).
+
+        On the ``pcm16`` wire the waveform is quantised to int16 on the
+        device and cut there to its first ``out_samples`` samples."""
         g, b, t = codes.shape
         n = self.cfg.code_frames
         width = chunk_width if chunk_width is not None else t
@@ -234,8 +298,11 @@ class AudioCodec:
             codes_lengths = np.pad(codes_lengths, (0, bp - b))
         codes_t = torch.from_numpy(np.ascontiguousarray(codes, np.int32)).to(self.device)
         len_t = torch.from_numpy(codes_lengths.astype(np.int64)).to(self.device)
-        with full_f32_precision():
+        with f32_precision(self.precision):
             out = detokenize(self.model, codes_t, len_t, width, **self._detok_kw)
+        if self.wire == "pcm16":
+            y = torch.clamp(out["y"].to(torch.float32) * 32768.0, -32768.0, 32767.0).to(torch.int16)
+            out = dict(out, y=y[:, :out_samples] if out_samples is not None else y)
         if bp != b:
             out = {"y": out["y"][:b], "output_length": out["output_length"][:b]}
         return out
@@ -244,7 +311,8 @@ class AudioCodec:
 
     def encode(self, wav_list: List[np.ndarray], overlap_seconds: int = 10) -> dict:
         """List of 1-D waveforms (float, or int16 PCM read as int16 / 32768)
-        -> {"codes_list": [(G, T_i) int32]}."""
+        -> {"codes_list": [(G, T_i) int32]}.  The batch ships as int16 on the
+        ``pcm16`` wire or when every item is int16; otherwise as float32."""
         duration_seconds = self.max_audio_seconds - overlap_seconds
         chunk_size = self.max_audio_seconds * self.input_sample_rate
         duration_size = duration_seconds * self.input_sample_rate
@@ -253,10 +321,13 @@ class AudioCodec:
         batch_size = len(wav_list)
         max_length = max(len(w) for w in wav_list)
         input_lengths = np.array([len(w) for w in wav_list], np.int64)
-        wav_tensor = np.zeros((batch_size, max_length), np.float32)
+        wire16 = self.wire == "pcm16" or all(np.asarray(w).dtype == np.int16 for w in wav_list)
+        wav_tensor = np.zeros((batch_size, max_length), np.int16 if wire16 else np.float32)
         for i, w in enumerate(wav_list):
             w = np.asarray(w).reshape(-1)
-            if w.dtype == np.int16:
+            if wire16 and w.dtype != np.int16:
+                w = to_pcm16(w)
+            elif not wire16 and w.dtype == np.int16:
                 w = w.astype(np.float32) / 32768.0
             wav_tensor[i, : len(w)] = w
 
@@ -286,7 +357,8 @@ class AudioCodec:
         return {"codes_list": codes_list}
 
     def decode(self, codes_list: List[np.ndarray], overlap_seconds: int = 10) -> dict:
-        """List of (G, T_i) code arrays -> {"syn_wav_list": [(T_i * 1280,) f32]}."""
+        """List of (G, T_i) code arrays -> {"syn_wav_list": [(T_i * 1280,)]}: f32
+        waveforms, or int16 PCM on the ``pcm16`` wire."""
         duration_seconds = self.max_audio_seconds - overlap_seconds
         chunk_code_length = self.max_audio_seconds * self.input_sample_rate // self.encoder_downsample_rate
         duration_code_length = duration_seconds * self.input_sample_rate // self.encoder_downsample_rate
@@ -307,10 +379,11 @@ class AudioCodec:
             chunk_code_lengths = np.clip(code_lengths - start, 0, end - start)
             if chunk_code_lengths.max() == 0:
                 continue
-            result = self.inference_detokenize(codes_tensor[:, :, start:end], chunk_code_lengths,
-                                               chunk_width=end - start)
             # only the first stride's worth of each chunk is kept
-            wav = result["y"][:, :duration_wav_length].to(torch.float32).cpu().numpy()
+            result = self.inference_detokenize(codes_tensor[:, :, start:end], chunk_code_lengths,
+                                               chunk_width=end - start, out_samples=duration_wav_length)
+            y = result["y"][:, :duration_wav_length]
+            wav = (y if y.dtype == torch.int16 else y.to(torch.float32)).cpu().numpy()
             wav_lens = result["output_length"].cpu().numpy()
             valid = np.clip(wav_lens, 0, duration_wav_length)
             t_idx = np.arange(wav.shape[1])
@@ -321,7 +394,8 @@ class AudioCodec:
             syn_wav_list = [wav_tensor[i, : code_lengths[i] * self.decoder_upsample_rate]
                             for i in range(batch_size)]
         else:
-            syn_wav_list = [np.zeros((0,), np.float32) for _ in range(batch_size)]
+            out_dtype = np.int16 if self.wire == "pcm16" else np.float32
+            syn_wav_list = [np.zeros((0,), out_dtype) for _ in range(batch_size)]
         return {"syn_wav_list": syn_wav_list}
 
     @classmethod

@@ -8,7 +8,9 @@ channels-last (B, T, D); parameters stay f32 and are cast to the activation
 dtype where they are used.
 
 Attention impls: ``dense`` (additive +1.0 / f32-min pair bias, parity
-mode) and ``pflash`` (packed QKV + the ``csrc/pflash.cu`` core).  FFN impls:
+mode), ``pflash`` (packed QKV + the ``csrc/pflash.cu`` core) and ``flash``
+(per-head q, k, v + the ``csrc/flash.cu`` core, weights normalised before
+the value product).  FFN impls:
 ``dense`` (exact GELU), ``fused`` (``csrc/ln_ffn.cu``) and ``int8-fused``
 (``csrc/ln_ffn_int8.cu``; needs ``ops.quant.quantize_stacked_ffn``).
 """
@@ -25,7 +27,7 @@ from torch.nn import functional as F
 from simwhisper_codec_tpu_torch.config import DecoderConfig, EncoderConfig
 from simwhisper_codec_tpu_torch.ops.conv import conv1d, conv_transpose1d
 
-ATTN_IMPLS = ("dense", "pflash")
+ATTN_IMPLS = ("dense", "pflash", "flash")
 FFN_IMPLS = ("dense", "fused", "int8-fused")
 
 
@@ -99,6 +101,10 @@ class TransformerLayer(nn.Module):
             from simwhisper_codec_tpu_torch.ops.flash_attention import varlen_attention_pflash
 
             x = x + varlen_attention_pflash(self.self_attn, h, lengths)
+        elif attn_impl == "flash":
+            from simwhisper_codec_tpu_torch.ops.flash_attention import varlen_attention_flash
+
+            x = x + varlen_attention_flash(self.self_attn, h, lengths)
         elif attn_impl == "dense":
             x = x + self.self_attn.dense(h, bias)
         else:

@@ -8,10 +8,12 @@ keys (``backbone.embed``, ``backbone.convnext.{i}.pwconv1``, ``head.out``).
 re-zeroed beyond it before every conv, and the ISTFT envelope ends there,
 so a fixed T-frame run reproduces the reference's shorter-array output.
 
-Pointwise-chain impls per block: ``None`` (exact GELU, parity mode),
-``"fused"`` (``csrc/ln_ffn.cu``) and ``"int8"`` (``csrc/ln_ffn_int8.cu``;
-needs ``ops.quant.quantize_stacked_convnext``).  The residual of a block is
-its *unmasked* input, as in the JAX package.
+Block impls: ``None`` (exact GELU, parity mode), ``"fused"`` (plain
+depthwise conv, then ``csrc/ln_ffn.cu``), ``"fused-dw"`` (the whole block,
+depthwise conv and edge mask included, in ``csrc/convnext_dw.cu``) and
+``"int8"`` (plain depthwise conv, then ``csrc/ln_ffn_int8.cu``; needs
+``ops.quant.quantize_stacked_convnext``).  The residual of a block is its
+*unmasked* input, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from simwhisper_codec_tpu_torch.models.transformer import layer_norm, linear
 from simwhisper_codec_tpu_torch.ops.conv import conv1d, depthwise_conv1d_shifts
 from simwhisper_codec_tpu_torch.ops.stft import ISTFTConstants, istft_same
 
-VOCOS_IMPLS = (None, "fused", "int8")
+VOCOS_IMPLS = (None, "fused", "fused-dw", "int8")
 
 
 def edge_mask(t: int, frame_valid: Optional[int], dtype, device) -> Optional[torch.Tensor]:
@@ -46,7 +48,13 @@ class ConvNeXtBlock(nn.Module):
         self.pwconv2 = nn.Linear(intermediate, dim)
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], impl=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], impl=None,
+                frame_valid: Optional[int] = None) -> torch.Tensor:
+        """``mask`` is ``edge_mask`` of ``frame_valid``; ``fused-dw`` reads the bound itself."""
+        if impl == "fused-dw":
+            from simwhisper_codec_tpu_torch.ops.fused_convnext import fused_convnext_block_dw
+
+            return fused_convnext_block_dw(x, self, frame_valid, eps=1e-6)
         residual = x
         if mask is not None:
             x = x * mask
@@ -103,7 +111,7 @@ class Vocos(nn.Module):
         x = conv1d(x, bb.embed.weight, bb.embed.bias, padding=3)
         x = layer_norm(x, bb.norm, eps=1e-6)
         for block in bb.convnext:
-            x = block(x, mask, impl)
+            x = block(x, mask, impl, frame_valid)
         x = layer_norm(x, bb.final_layer_norm, eps=1e-6)
         x = linear(x, self.head.out)
         n_freq = self.cfg.n_fft // 2 + 1

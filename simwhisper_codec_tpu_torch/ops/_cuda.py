@@ -29,7 +29,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("pflash", "ln_ffn", "ln_ffn_int8")
+SOURCES = ("pflash", "ln_ffn", "ln_ffn_int8", "flash", "convnext_dw")
 
 # kernel name (with its call shape) -> launches since the last reset
 launch_counts: Dict[str, int] = defaultdict(int)
@@ -49,8 +49,8 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + (CSRC_DIR / "common.cuh").read_bytes()).hexdigest()[:12]
+    parts = [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh"))  # any header may be included
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in parts)).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -90,6 +90,7 @@ def library(name: str) -> ctypes.CDLL:
 
 
 c_int = ctypes.c_int
+c_int64 = ctypes.c_longlong
 c_float = ctypes.c_float
 
 

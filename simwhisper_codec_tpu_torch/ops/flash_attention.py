@@ -1,10 +1,17 @@
-"""Attention core on packed (B, T, 3D) QKV: the CUDA kernel and its plain version.
+"""Attention cores: CUDA kernels and their plain versions.
 
-Counterpart of ``simwhisper_codec_tpu/ops/flash_attention.py:162-263``
-(``fused_qkv_attention`` / ``varlen_attention_pflash``).  The kernel is
-``csrc/pflash.cu``; see its header for the design.  ``fused_qkv_attention``
-launches it for a CUDA tensor and runs ``fused_qkv_attention_plain`` for a
-CPU tensor; there is no fallback between the two.
+Counterpart of ``simwhisper_codec_tpu/ops/flash_attention.py``:
+
+- ``fused_qkv_attention`` / ``varlen_attention_pflash`` (:162-263), on
+  packed (B, T, 3D) QKV, normalisation deferred to the output: kernel
+  ``csrc/pflash.cu`` (B1);
+- ``flash_attention`` / ``varlen_attention_flash`` (:62-100, :266-288), on
+  (B, H, T, hd) q, k, v, weights normalised before the value product:
+  kernel ``csrc/flash.cu`` (B5).
+
+See the kernels' headers for their designs.  Each wrapper launches its
+kernel for a CUDA tensor and runs the plain version for a CPU tensor; there
+is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from simwhisper_codec_tpu_torch.ops import _cuda
 
 NEG_BIG = float(np.finfo(np.float32).min)
 KERNEL_NAME = "pflash_attention"
+FLASH_KERNEL_NAME = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -86,3 +94,70 @@ def varlen_attention_pflash(attn, x: torch.Tensor, lengths: torch.Tensor) -> tor
     o = fused_qkv_attention(packed_qkv(attn, x), lengths, attn.num_heads)
     return F.linear(o.reshape(b * t, d), attn.out_proj.weight.to(x.dtype)).reshape(b, t, d) \
         + attn.out_proj.bias.to(x.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """The B5 kernel's function step by step: (B, H, T, hd) -> (B, H, T, hd).
+
+    Scores get +1.0 on keys < length and the finite f32 minimum elsewhere
+    (a length-0 row therefore averages all T values uniformly); the weights
+    are normalised in f32 and only then rounded to the input dtype.
+    """
+    t = q.shape[2]
+    scores = q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)  # (B, H, T, T)
+    valid = torch.arange(t, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    bias = torch.where(valid, torch.tensor(1.0, device=q.device), torch.tensor(NEG_BIG, device=q.device))
+    scores = scores + bias[:, None, None, :]
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(q.dtype).to(torch.float32)
+    return (p @ v.to(torch.float32)).to(q.dtype)
+
+
+def _strides(x: torch.Tensor) -> list:
+    _cuda.require(x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0,
+                  "q, k, v and out need a contiguous, 16-byte aligned head dim and strides that are multiples of 8")
+    return [_cuda.c_int64(s) for s in x.stride()[:3]]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Variable-length attention on (B, H, T, hd) q, k, v -> (B, H, T, hd).
+
+    q must be pre-scaled by hd^-1/2.  The inputs may be strided views (e.g.
+    (B, T, H, hd) projections transposed); for a CUDA tensor the output is
+    a (B, H, T, hd) view of a contiguous (B, T, H, hd) buffer, so the caller's
+    transpose back to (B, T, D) costs no copy.  CUDA tensors launch
+    ``csrc/flash.cu`` (bf16 only); CPU tensors run the plain version.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, lengths)
+    _cuda.require(q.device.type == "cuda", f"unsupported device {q.device}")
+    _cuda.require(q.dim() == 4 and k.shape == q.shape and v.shape == q.shape,
+                  "q, k and v must be (B, H, T, hd) tensors of one shape")
+    _cuda.require(all(z.dtype == torch.bfloat16 and z.device == q.device for z in (q, k, v)),
+                  f"flash kernel takes bfloat16 q, k, v on one device, got {q.dtype}")
+    b, h, t, hd = q.shape
+    _cuda.require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    _cuda.require(lengths.shape == (b,) and lengths.device == q.device, "lengths must be (B,) on the device")
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    _cuda.launch("flash", "flash_attention_bf16", FLASH_KERNEL_NAME, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v),
+                 _cuda.ptr(lengths), _cuda.ptr(out), *map(_cuda.c_int, (b, h, t, hd)),
+                 *_strides(q), *_strides(k), *_strides(v), *_strides(out), _cuda.stream(q.device))
+    return out
+
+
+def varlen_attention_flash(attn, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Attention sublayer of the B5 path, in the JAX wrapper's order:
+    q = (x Wq + bq) hd^-1/2, k = x Wk, v = x Wv + bv (one packed product,
+    viewed per head by stride), attention core, output projection."""
+    b, t, d = x.shape
+    h = attn.num_heads
+    hd = d // h
+    w = torch.cat([attn.q_proj.weight, attn.k_proj.weight, attn.v_proj.weight], 0).to(x.dtype)
+    qkv = (x.reshape(b * t, d) @ w.t()).reshape(b, t, 3, h, hd)
+    q = (qkv[:, :, 0] + attn.q_proj.bias.to(x.dtype).reshape(h, hd)) * hd ** -0.5
+    k = qkv[:, :, 1]
+    v = qkv[:, :, 2] + attn.v_proj.bias.to(x.dtype).reshape(h, hd)
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lengths)
+    o = o.transpose(1, 2).reshape(b * t, d)
+    return (o @ attn.out_proj.weight.to(x.dtype).t()).reshape(b, t, d) + attn.out_proj.bias.to(x.dtype)

@@ -1,9 +1,10 @@
 """Fused LN -> FFN -> layer scale -> residual chains: CUDA kernels and plain versions.
 
 Counterpart of ``simwhisper_codec_tpu/ops/fused_convnext.py`` (``fused_ln_ffn``
-and ``fused_convnext_ffn`` :38-139, ``fused_ln_ffn_int8`` :261-357).  The
-kernels are ``csrc/ln_ffn.cu`` (bf16) and ``csrc/ln_ffn_int8.cu`` (int8);
-see their headers for the designs.  Each wrapper launches its kernel for a
+and ``fused_convnext_ffn`` :38-139, ``fused_convnext_block_dw`` :142-258,
+``fused_ln_ffn_int8`` :261-357).  The kernels are ``csrc/ln_ffn.cu`` (bf16),
+``csrc/convnext_dw.cu`` (the whole ConvNeXt block, depthwise conv included)
+and ``csrc/ln_ffn_int8.cu`` (int8); see their headers for the designs.  Each wrapper launches its kernel for a
 CUDA tensor and runs the plain version for a CPU tensor; there is no
 fallback between the two.
 
@@ -18,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.nn import functional as F
 
 from simwhisper_codec_tpu_torch.ops import _cuda
 
@@ -51,15 +53,20 @@ def _int_matmul(aq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return (aq.to(torch.float64) @ wq.to(torch.float64).t()).to(torch.float32)
 
 
-def fused_ln_ffn_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma=None, eps=1e-6):
-    """res + gamma * (GELU_tanh(LN(x) W1^T + b1) W2^T + b2), step by step."""
-    dt = x.dtype
+def _ln_ffn_chain_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, dt):
+    """The bf16 chain on rows x (any float dtype, normalised in f32), every
+    operand cast to ``dt`` first, output in ``dt``."""
     w1, w2 = w1.to(dt).to(torch.float32), w2.to(dt).to(torch.float32)
     xn = _ln_f32(x, ln_w.to(dt), ln_b.to(dt), eps).to(dt).to(torch.float32)
     h = _gelu_tanh(xn @ w1.t() + b1.to(dt).to(torch.float32)).to(dt).to(torch.float32)
     y = h @ w2.t() + b2.to(dt).to(torch.float32)
-    y = _gamma(gamma, x).to(torch.float32) * y
+    y = _gamma(gamma, residual).to(torch.float32) * y
     return (residual.to(torch.float32) + y).to(dt)
+
+
+def fused_ln_ffn_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma=None, eps=1e-6):
+    """res + gamma * (GELU_tanh(LN(x) W1^T + b1) W2^T + b2), step by step."""
+    return _ln_ffn_chain_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, x.dtype)
 
 
 def fused_ln_ffn_int8_plain(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma=None, eps=1e-6):
@@ -139,5 +146,58 @@ def fused_ln_ffn_int8(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma=N
     out = torch.empty_like(x)
     _cuda.launch("ln_ffn_int8", "ln_ffn_int8", f"ln_ffn_int8:{c}x{inter}", _cuda.ptr(x), _cuda.ptr(residual),
                  *map(_cuda.ptr, args), _cuda.ptr(out), _cuda.c_int(m), _cuda.c_int(c), _cuda.c_int(inter),
+                 _cuda.c_float(eps), _cuda.stream(dev))
+    return out
+
+
+def _dw_taps(block, dt):
+    """Depthwise weight (C, 1, 7) -> (7, C) and bias, cast to the activation dtype."""
+    return block.dwconv.weight[:, 0, :].t().to(dt), block.dwconv.bias.to(dt)
+
+
+def fused_convnext_block_dw_plain(x: torch.Tensor, block, frame_valid=None, eps: float = 1e-6) -> torch.Tensor:
+    """The B4 kernel's function step by step on x (B, T, C): rows outside
+    [0, frame_valid) zeroed, depthwise k7 summed in f32 from the bias with
+    taps 0..6 in order, the bf16 chain on that f32 sum (no rounding before
+    the LayerNorm), residual = the unmasked x."""
+    dt = x.dtype
+    b, t, c = x.shape
+    fv = t if frame_valid is None else int(frame_valid)
+    valid = (torch.arange(t, device=x.device) < fv)[None, :, None]
+    xp = F.pad(torch.where(valid, x.to(torch.float32), 0.0), (0, 0, 3, 3))
+    w, bias = (z.to(torch.float32) for z in _dw_taps(block, dt))
+    xdw = bias.expand(b, t, c)
+    for k in range(7):
+        xdw = xdw + xp[:, k:k + t] * w[k]
+    return _ln_ffn_chain_plain(xdw.reshape(b * t, c), x.reshape(b * t, c), block.norm.weight, block.norm.bias,
+                               block.pwconv1.weight, block.pwconv1.bias, block.pwconv2.weight,
+                               block.pwconv2.bias, block.gamma, eps, dt).reshape(b, t, c)
+
+
+def fused_convnext_block_dw(x: torch.Tensor, block, frame_valid=None, eps: float = 1e-6) -> torch.Tensor:
+    """Whole ConvNeXt block of one Vocos layer (depthwise k7 conv with the
+    ``frame_valid`` edge mask, LN, pwconv1, GELU, pwconv2, gamma, residual)
+    on x (B, T, C).  Any T; ``frame_valid=None`` means T."""
+    if x.device.type == "cpu":
+        return fused_convnext_block_dw_plain(x, block, frame_valid, eps)
+    _cuda.require(x.device.type == "cuda", f"unsupported device {x.device}")
+    _cuda.require(x.dtype == torch.bfloat16, f"ConvNeXt kernel takes bfloat16, got {x.dtype}")
+    _cuda.require(x.dim() == 3, "x must be a (B, T, C) tensor")
+    x = x.contiguous()  # the first block's input is a transposed view of the embedding conv's output
+    b, t, c = x.shape
+    _cuda.require(c % 64 == 0 and 64 <= c <= 768, f"C={c} must be a multiple of 64 up to 768")
+    inter = block.pwconv1.weight.shape[0]
+    _cuda.require(inter % 32 == 0, f"I={inter} must be a multiple of 32")
+    fv = t if frame_valid is None else int(frame_valid)
+    _cuda.require(fv >= 0, f"frame_valid must be >= 0, got {fv}")
+    dev, dt = x.device, x.dtype
+    dw_w, dw_b = _dw_taps(block, dt)
+    args = [dw_w.contiguous(), _vec(dw_b, c, dt, dev), _vec(block.norm.weight, c, dt, dev),
+            _vec(block.norm.bias, c, dt, dev), block.pwconv1.weight.to(dt).contiguous(),
+            _vec(block.pwconv1.bias, inter, dt, dev), block.pwconv2.weight.to(dt).contiguous(),
+            _vec(block.pwconv2.bias, c, dt, dev), _vec(block.gamma, c, dt, dev)]
+    out = torch.empty_like(x)
+    _cuda.launch("convnext_dw", "convnext_dw_bf16", f"convnext_dw:{c}x{inter}", _cuda.ptr(x),
+                 *map(_cuda.ptr, args), _cuda.ptr(out), *map(_cuda.c_int, (b, t, c, inter, min(fv, t))),
                  _cuda.c_float(eps), _cuda.stream(dev))
     return out

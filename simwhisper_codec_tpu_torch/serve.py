@@ -13,6 +13,10 @@ Endpoints (application/octet-stream unless noted):
 Overload: the micro-batch queue is bounded (--queue_depth); a full queue
 answers 503 with Retry-After.  Bodies above --max_body_mb answer 413 unread.
 
+--wire pcm16 moves waveforms between host and device as int16 (half the
+bytes); the endpoints still speak f32 PCM, so waveforms are quantised to the
+16-bit grid on the way in and out.
+
 Run:  python -m simwhisper_codec_tpu_torch.serve [--checkpoint SimWhisperCodec.pt] --port 8300
 (without --checkpoint the weights are random, drawn from --seed).
 """
@@ -135,6 +139,13 @@ def make_runner(codec):
     return runner
 
 
+def _wav_to_f32(wav: np.ndarray) -> np.ndarray:
+    """A decoded waveform as the protocol's f32 PCM (int16 from the pcm16 wire is rescaled)."""
+    if wav.dtype == np.int16:
+        return wav.astype(np.float32) / 32768.0
+    return np.asarray(wav, np.float32)
+
+
 def make_handler(batcher: MicroBatcher, sample_rate: int, max_body_bytes: int = 64 * 1024 * 1024):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):
@@ -174,12 +185,12 @@ def make_handler(batcher: MicroBatcher, sample_rate: int, max_body_bytes: int = 
                     g, t = (int(v) for v in self.headers["X-Code-Shape"].split(","))
                     codes = np.frombuffer(raw, np.int32).reshape(g, t)
                     wav = batcher.submit("decode", codes)
-                    self._send(200, np.asarray(wav, np.float32).tobytes())
+                    self._send(200, _wav_to_f32(wav).tobytes())
                 elif self.path == "/reconstruct":
                     wav = np.frombuffer(raw, np.float32)
                     batcher.add_audio(len(wav) / sample_rate)
                     out = batcher.submit("reconstruct", wav)
-                    self._send(200, np.asarray(out, np.float32).tobytes())
+                    self._send(200, _wav_to_f32(out).tobytes())
                 else:
                     self._send(404, b"not found")
             except Overloaded as e:
@@ -201,11 +212,11 @@ def build_codec(args):
 
     if args.checkpoint:
         return AudioCodec.load_from_checkpoint(args.config, args.checkpoint, mode=args.mode,
-                                               batch_size=args.max_batch, device=args.device)
+                                               batch_size=args.max_batch, device=args.device, wire=args.wire)
     cfg = load_config(args.config)
     logger.info("no --checkpoint: random weights from seed %d", args.seed)
     model = init_params(cfg, torch.Generator().manual_seed(args.seed))
-    return AudioCodec(cfg, model, mode=args.mode, batch_size=args.max_batch, device=args.device)
+    return AudioCodec(cfg, model, mode=args.mode, batch_size=args.max_batch, device=args.device, wire=args.wire)
 
 
 def main(argv=None):
@@ -224,12 +235,15 @@ def main(argv=None):
                    help="max requests waiting for the device; beyond this new requests get 503")
     p.add_argument("--max_body_mb", type=float, default=64.0,
                    help="reject request bodies above this size with 413 before reading them")
+    p.add_argument("--wire", default="float32", choices=["float32", "pcm16"],
+                   help="host<->device waveform format; pcm16 halves the bytes and quantises to 16 bits")
     args = p.parse_args(argv)
 
     codec = build_codec(args)
     warm = [np.zeros(16000, np.float32)]  # first requests should not pay for start-up
     codec.decode(codec.encode(warm)["codes_list"])
-    logger.info("codec warm; serving on %s:%d (mode=%s, device=%s)", args.host, args.port, args.mode, codec.device)
+    logger.info("codec warm; serving on %s:%d (mode=%s, device=%s, wire=%s)", args.host, args.port, args.mode,
+                codec.device, args.wire)
 
     batcher = MicroBatcher(make_runner(codec), args.max_batch, args.window_ms, queue_depth=args.queue_depth)
     server = CodecHTTPServer((args.host, args.port),

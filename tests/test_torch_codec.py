@@ -5,7 +5,8 @@
 (b) the fast path in float32: the port's pflash and fused LN-FFN plain
     versions vs the JAX kernels in interpret mode: codes equal, waves close;
 (c) the same with the int8 FFN impls, and ``fast-int8`` codes == ``fast``
-    codes inside the port.
+    codes inside the port;
+(d) the same with the B5 attention core and the B4 whole-block Vocos kernel.
 """
 
 import jax.numpy as jnp
@@ -109,6 +110,17 @@ def test_int8_path_f32_matches_jax_kernels(pair):
     _round_trip(qparams, qmodel, wav, lens, jkw, tkw)
 
 
+def test_flash_dw_path_f32_matches_jax_kernels(pair):
+    """flash attention core (B5) + fused LN-FFN + whole-block Vocos kernel (B4)."""
+    params, model = pair
+    wav, lens = _one_chunk()
+    jkw = {"tok": dict(attn_impl="flash", fused_ffn=True),
+           "detok": dict(attn_impl="flash", fused_ffn=True, fused_vocos="dw")}
+    tkw = {"tok": dict(attn_impl="flash", ffn_impl="fused"),
+           "detok": dict(attn_impl="flash", ffn_impl="fused", vocos_impl="fused-dw")}
+    _round_trip(params, model, wav, lens, jkw, tkw)
+
+
 def test_fast_int8_codes_equal_fast_codes(utterances):
     """fast-int8 quantises only the decode side, so its codes are fast's."""
     params = jax_params(1)
@@ -134,6 +146,24 @@ def test_mode_programs():
                                                  "ffn_impl": "dense", "vocos_impl": None}
     with pytest.raises(ValueError):
         tcodec.mode_programs("turbo")
+    tok, detok = tcodec.mode_programs("fast", attn_impl="flash", vocos_impl="fused-dw")
+    assert tok["attn_impl"] == detok["attn_impl"] == "flash" and detok["vocos_impl"] == "fused-dw"
+    # the int8 chain wins in the int8 modes
+    assert tcodec.mode_programs("fast-int8", vocos_impl="fused-dw")[1]["vocos_impl"] == "int8"
+    assert tcodec.mode_programs("parity", attn_impl="flash")[0]["attn_impl"] == "flash"
+
+
+@pytest.mark.parametrize("mode,kwargs", [
+    ("fast", {"attn_impl": "chunked"}),
+    ("fast", {"vocos_impl": "dw"}),
+    ("fast", {"vocos_impl": "int8"}),
+    ("parity", {"vocos_impl": "fused-dw"}),
+])
+def test_unknown_impls_are_rejected(pair, mode, kwargs):
+    with pytest.raises(ValueError):
+        tcodec.mode_programs(mode, **kwargs)
+    with pytest.raises(ValueError):
+        tcodec.AudioCodec(TINY, pair[1], mode=mode, device="cpu", **kwargs)
 
 
 def test_entry_points_default_to_cuda(pair):

@@ -16,6 +16,7 @@ import torch
 from simwhisper_codec_tpu.ops import flash_attention as jfa
 from simwhisper_codec_tpu.ops import fused_convnext as jfc
 from simwhisper_codec_tpu.ops.quant import quantize_weight as jquantize_weight
+from simwhisper_codec_tpu_torch.models.vocos import ConvNeXtBlock
 from simwhisper_codec_tpu_torch.ops import _cuda
 from simwhisper_codec_tpu_torch.ops import flash_attention as tfa
 from simwhisper_codec_tpu_torch.ops import fused_convnext as tfc
@@ -118,14 +119,24 @@ def test_wrappers_raise_on_unsupported_devices():
         tfc.fused_ln_ffn(x, x, x[0], x[0], x, x[0], x, x[0])
     with pytest.raises(ValueError):
         tfa.fused_qkv_attention(torch.empty((1, 8, 96), device="meta"), torch.zeros(1, dtype=torch.int32), 2)
+    q = torch.empty((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q, q, torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tfc.fused_convnext_block_dw(torch.empty((1, 40, 64), device="meta"), ConvNeXtBlock(64, 128, 0.1).to("meta"))
 
 
 def test_kernel_sources_and_launch_counts():
     """Every kernel source exists; CPU calls launch nothing and count nothing."""
+    assert set(_cuda.SOURCES) == {"pflash", "ln_ffn", "ln_ffn_int8", "flash", "convnext_dw"}
     for name in _cuda.SOURCES:
         assert (_cuda.CSRC_DIR / f"{name}.cu").exists()
     _cuda.reset_launch_counts()
     x = torch.randn(8, 64)
     tfc.fused_ln_ffn(x, x, torch.ones(64), torch.zeros(64), torch.randn(128, 64), torch.zeros(128),
                      torch.randn(64, 128), torch.zeros(64))
+    q = torch.randn(1, 2, 8, 16)
+    tfa.flash_attention(q, q, q, torch.tensor([5]))
+    with torch.no_grad():
+        tfc.fused_convnext_block_dw(torch.randn(1, 8, 64), ConvNeXtBlock(64, 128, 0.1), frame_valid=6)
     assert dict(_cuda.launch_counts) == {}

@@ -1,5 +1,5 @@
 """The port's serving daemon: overload and body-cap semantics, counters, and
-the endpoints in front of a TINY parity codec on the CPU."""
+the endpoints in front of a TINY parity codec on the CPU, on both wires."""
 
 import http.client
 import json
@@ -10,6 +10,7 @@ import time
 import numpy as np
 
 from simwhisper_codec_tpu_torch.models.codec import AudioCodec
+from simwhisper_codec_tpu_torch.utils.audio_io import to_pcm16
 from simwhisper_codec_tpu_torch.serve import CodecHTTPServer, MicroBatcher, make_handler, make_runner
 
 from torch_port import TINY, jax_params, port_model
@@ -98,6 +99,24 @@ def test_endpoints_with_a_tiny_codec():
         health = json.loads(raw)
         assert status == 200 and health["served"] >= 3 and health["audio_seconds"] == 4.0
         assert _request(port, "GET", "/nope")[0] == 404
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_pcm16_wire_answers_f32_on_the_16bit_grid():
+    """--wire pcm16: the endpoints still speak f32 PCM, rescaled from the int16 decode."""
+    model = port_model(jax_params(0))
+    f32 = AudioCodec(TINY, model, batch_size=2, mode="parity", device="cpu")
+    pcm = AudioCodec(TINY, model, batch_size=2, mode="parity", device="cpu", wire="pcm16")
+    server, port = _serve(MicroBatcher(make_runner(pcm), max_batch=2))
+    try:
+        wav = np.random.default_rng(1).integers(-3000, 3000, 16000).astype(np.float32) / 32768.0
+        status, _, raw = _request(port, "POST", "/reconstruct", wav.tobytes())
+        out = np.frombuffer(raw, np.float32)
+        want = f32.decode(f32.encode([wav])["codes_list"])["syn_wav_list"][0]
+        assert status == 200 and out.shape == want.shape
+        np.testing.assert_array_equal(out, to_pcm16(want).astype(np.float32) / 32768.0)
     finally:
         server.shutdown()
         server.server_close()

@@ -3,16 +3,17 @@
 
 Builds the full-width codec (config/SimWhisperCodec.yaml, random weights
 from a fixed seed), warms it, then traces one tokenize and one detokenize of
-a batch of 8 x 30 s with ``torch.profiler`` for each requested mode.  Prints
-per stage: host wall time of an untraced call, summed device time of the
-traced call, the device's idle share (1 - device time / untraced wall time;
-one stream, so kernels do not overlap) and the kernels that take the most
-device time, and the device time of these groups: the three hand kernels,
-host-to-device copies, and cuBLAS/cuDNN GEMMs.  The full table goes to
-``<out_dir>/profile_<mode>.json``.
+a batch of 8 x 30 s with ``torch.profiler`` for each requested configuration
+(the serving modes, and ``flash-dw``: fast mode with the B5 attention core
+and the B4 whole-block Vocos kernel).  Prints per stage: host wall time of an
+untraced call, summed device time of the traced call, the device's idle
+share (1 - device time / untraced wall time; one stream, so kernels do not
+overlap) and the kernels that take the most device time, and the device time
+of these groups: the five hand kernels, host-to-device copies, and
+cuBLAS/cuDNN GEMMs.  The full table goes to ``<out_dir>/profile_<config>.json``.
 
 Run from the repository root on the machine with the GPU:
-    python3 tools/profile_torch_port.py [--out_dir profiles]
+    python3 tools/profile_torch_port.py [--out_dir profiles] [--config all|fast-int8|fast|parity|flash-dw]
 """
 
 from __future__ import annotations
@@ -34,8 +35,19 @@ GROUPS = {
     "B1 pflash": ("pflash_kernel",),
     "B2 ln_ffn": ("ln_ffn_kernel<",),
     "B3 ln_ffn_int8": ("ln_ffn_int8_kernel<",),
+    "B4 convnext_dw": ("convnext_dw_kernel<",),
+    "B5 flash": ("flash_attn_kernel<",),
     "host-to-device copies": ("Memcpy HtoD",),
     "GEMMs": ("gemm", "nvjet"),
+}
+
+
+# configuration name -> AudioCodec arguments
+CONFIGS = {
+    "fast-int8": {"mode": "fast-int8"},
+    "fast": {"mode": "fast"},
+    "parity": {"mode": "parity"},
+    "flash-dw": {"mode": "fast", "attn_impl": "flash", "vocos_impl": "fused-dw"},
 }
 
 
@@ -74,7 +86,8 @@ def profile_stage(torch, fn):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out_dir", default="profiles", help="where the per-mode JSON tables go")
+    ap.add_argument("--out_dir", default="profiles", help="where the per-configuration JSON tables go")
+    ap.add_argument("--config", default="all", choices=["all", *CONFIGS])
     args = ap.parse_args()
     import torch
 
@@ -95,18 +108,18 @@ def main() -> int:
     lens = np.full(8, cfg.chunk_samples)
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for mode in ("fast-int8", "fast", "parity"):
-        codec = AudioCodec(cfg, model, batch_size=8, mode=mode, device="cuda")
+    for name in CONFIGS if args.config == "all" else [args.config]:
+        codec = AudioCodec(cfg, model, batch_size=8, device="cuda", **CONFIGS[name])
         tok = codec.inference_tokenize(wav, lens)  # warm-up of both stages
         codes, clen = tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy()
         codec.inference_detokenize(codes, clen)
-        result = {"gpu": gpu, "mode": mode, "batch": 8, "seconds_per_item": cfg.max_audio_seconds,
+        result = {"gpu": gpu, "config": name, **CONFIGS[name], "batch": 8, "seconds_per_item": cfg.max_audio_seconds,
                   "tokenize": profile_stage(torch, lambda: codec.inference_tokenize(wav, lens)),
                   "detokenize": profile_stage(torch, lambda: codec.inference_detokenize(codes, clen))}
-        (out_dir / f"profile_{mode}.json").write_text(json.dumps(result, indent=1))
+        (out_dir / f"profile_{name}.json").write_text(json.dumps(result, indent=1))
         for stage in ("tokenize", "detokenize"):
             r = result[stage]
-            print(f"[{mode}/{stage}] wall {r['wall_ms']:.3f} ms (traced {r['traced_wall_ms']:.3f}), "
+            print(f"[{name}/{stage}] wall {r['wall_ms']:.3f} ms (traced {r['traced_wall_ms']:.3f}), "
                   f"device {r['device_ms']:.3f} ms in {r['device_launches']} launches, "
                   f"idle share {r['idle_share']:.3f}", flush=True)
             print(f"    groups (ms): {json.dumps({g: round(v, 3) for g, v in r['groups_ms'].items()})}", flush=True)
