@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import http.client
 import json
+import re
 import socket
 import subprocess
 import sys
@@ -55,6 +56,45 @@ def log(msg: str) -> None:
 def gpu_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def demangled_kernel(mangled: str) -> str:
+    """``_ZN..._GLOBAL__N__<hash>18pflash_sm90_kernelILi64EEEv...`` -> ``pflash_sm90_kernel<64>``:
+    the name is the suffix of the ``..._kernel`` run whose length the digits before it give."""
+    run = re.search(r"(\w*?_kernel)I", mangled)
+    if not run:
+        return mangled
+    chunk = run.group(1)
+    name = next((chunk[k:] for k in range(1, len(chunk))
+                 if chunk[k].isalpha() and chunk[:k].endswith(str(len(chunk) - k))), chunk)
+    return f"{name}<{','.join(re.findall(r'Li(-?[0-9]+)E', mangled))}>"
+
+
+def ptxas_report(log_text: str) -> dict:
+    """Registers and spill bytes of each kernel in one nvcc build log (``-Xptxas -v``):
+    {"pflash_sm90_kernel<64>": {"registers": 90, "spill_stores": 0, "spill_loads": 0}, ...}."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = demangled_kernel(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def log_build_reports(build_dir: Path, names) -> None:
+    """Print each kernel instantiation's registers and spill bytes from its build log."""
+    for name in names:
+        path = build_dir / f"{name}.log"
+        for fn, r in (ptxas_report(path.read_text()) if path.exists() else {}).items():
+            log(f"[build] {name}.cu {fn}: {r.get('registers')} registers, "
+                f"spill stores {r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B")
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -158,19 +198,25 @@ def kernel_phase(torch):
     q, k, v = head_views(qkv, h)
     key_mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
     # the library yardstick: SDPA on the same (B, H, T, hd) views, boolean
-    # key mask, no further scaling (q is pre-scaled)
+    # key mask, no further scaling (q is pre-scaled).  At full lengths (the
+    # codec's 8 x 30 s batch: every key valid) the same function is SDPA
+    # with no mask, which takes its flash backend.
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=key_mask, scale=1.0)
+    sdpa_full = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0)
+    full = torch.full_like(lengths, t)
     rows.append(check_kernel(torch, "pflash_attention", fa.fused_qkv_attention, fa.fused_qkv_attention_plain,
                              (qkv, lengths, h), 1e-2, 1.6e-2, flops, H100_BF16_FLOPS, nbytes,
                              "simwhisper_codec_tpu/ops/flash_attention.py:162", "simwhisper_codec_tpu_torch/csrc/pflash.cu",
-                             library=sdpa))
+                             library=sdpa, full_lengths_ms=lambda: fa.fused_qkv_attention(qkv, full, h),
+                             library_full_ms=sdpa_full))
     # B5: the same work on (B, H, T, hd) views of the packed projections; its
     # bf16 weights are rounded after normalisation, so one bf16 output ulp
     # (atol 1e-2 + two half-ulps) bounds the kernel vs plain difference, as for B1
     rows.append(check_kernel(torch, "flash_attention", fa.flash_attention, fa.flash_attention_plain,
                              (q, k, v, lengths), 1e-2, 1.6e-2, flops, H100_BF16_FLOPS, nbytes,
                              "simwhisper_codec_tpu/ops/flash_attention.py:62", "simwhisper_codec_tpu_torch/csrc/flash.cu",
-                             library=sdpa))
+                             library=sdpa, full_lengths_ms=lambda: fa.flash_attention(q, k, v, full),
+                             library_full_ms=sdpa_full))
 
     # Tolerances: bf16 outputs are compared as |d| <= atol + 1.6e-2 |plain|
     # (1.6e-2 is two bf16 half-ulps).  For int8 the atol is wider: LN sums in
@@ -519,6 +565,7 @@ def main() -> int:
 
     log(f"[gpu] {gpu_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"[build] {len(_cuda.SOURCES)} kernels built in {_cuda.build_kernels():.1f} s")
+    log_build_reports(_cuda.BUILD_DIR, _cuda.SOURCES)
     with torch.no_grad():
         rows = kernel_phase(torch)
     cfg = load_config("config/SimWhisperCodec.yaml")

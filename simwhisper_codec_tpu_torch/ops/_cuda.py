@@ -54,21 +54,28 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def nvcc(source: Path, out: Path, log: Path) -> Path:
+    """Compile one ``.cu`` (headers from its own directory) into the shared
+    library ``out``; the compiler's output, with ptxas' register and spill
+    report, goes to ``log``."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(source.parent),
+           "-o", str(tmp), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log.write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
 def _compile(name: str) -> Path:
     out = _library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC_DIR),
-           "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out
+    return nvcc(CSRC_DIR / f"{name}.cu", out, BUILD_DIR / f"{name}.log")
 
 
 def build_kernels(names: Optional[Iterable[str]] = None) -> float:

@@ -9,12 +9,18 @@ Counterpart of ``simwhisper_codec_tpu/ops/flash_attention.py``:
   (B, H, T, hd) q, k, v, weights normalised before the value product:
   kernel ``csrc/flash.cu`` (B5).
 
-See the kernels' headers for their designs.  Each wrapper launches its
-kernel for a CUDA tensor and runs the plain version for a CPU tensor; there
-is no fallback between the two.
+Both kernels are one Hopper design (``csrc/attn_sm90.cuh``): TMA tile
+loads into a shared-memory ring, ``wgmma`` for both products.  The tensor
+maps of their operands are encoded in C from the geometry that ``tile_map``
+computes here.  See the kernels' headers for their designs.  Each wrapper
+launches its kernel for a CUDA tensor and runs the plain version for a CPU
+tensor; there is no fallback between the two.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +32,53 @@ NEG_BIG = float(np.finfo(np.float32).min)
 KERNEL_NAME = "pflash_attention"
 FLASH_KERNEL_NAME = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 128)
+TILE_ROWS = 64  # rows (keys, or query rows) of one TMA box: the kernels' key tile
+MAX_BOX_COLS = 64  # 128 bytes of bf16, the widest swizzle; hd = 128 takes two boxes
+
+
+class TileMap(NamedTuple):
+    """TMA geometry of one bf16 operand of the attention kernels."""
+
+    dims: Tuple[int, ...]  # elements, innermost first
+    strides: Tuple[int, ...]  # bytes, of dims 1, 2, ...
+    box: Tuple[int, ...]  # elements of one box, innermost first
+    swizzle: int  # bytes (32, 64 or 128): the width of one box row
+
+    def as_c(self) -> ctypes.Array:
+        """[rank, dims[5], strides[4], box[5], swizzle] as the C entry points read it."""
+        pad = lambda v, k: list(v) + [0] * (k - len(v))
+        vals = [len(self.dims), *pad(self.dims, 5), *pad(self.strides, 4), *pad(self.box, 5), self.swizzle]
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def tile_map(x: torch.Tensor, hd: int) -> TileMap:
+    """The tensor map of an attention operand, from its shape and strides.
+
+    ``x`` is the packed (B, T, 3D) QKV tensor (a 3-D map (3D, T, B): head h's
+    q, k and v are boxes at columns h*hd, D + h*hd and 2D + h*hd) or a
+    (B, H, T, hd) view (a 4-D map (hd, T, H, B) by its strides).  A box is
+    64 rows of min(hd, 64) columns, swizzled by its row width; rows past T
+    read as zeros.  Raises ValueError where the TMA cannot take the layout:
+    a last dim that is not contiguous, a base not 16-byte aligned, a byte
+    stride not a multiple of 16.
+    """
+    _cuda.require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    _cuda.require(x.dim() in (3, 4) and x.stride(-1) == 1, "the last dim must be contiguous")
+    item = 2  # bf16
+    if x.dim() == 3:
+        b, t, width = x.shape
+        dims, strides = (width, t, b), (x.stride(1), x.stride(0))
+    else:
+        b, h, t, d = x.shape
+        _cuda.require(d == hd, f"a (B, H, T, hd) view with hd {d}, expected {hd}")
+        dims, strides = (hd, t, h, b), (x.stride(2), x.stride(1), x.stride(0))
+    byte_strides = tuple(s * item for s in strides)
+    _cuda.require(all(s % 16 == 0 and 0 < s < 1 << 40 for s in byte_strides),
+                  f"byte strides {byte_strides} must be positive multiples of 16")
+    _cuda.require(x.data_ptr() % 16 == 0, "the tensor's base must be 16-byte aligned")
+    cols = min(hd, MAX_BOX_COLS)
+    box = (cols, TILE_ROWS) + (1,) * (len(dims) - 2)
+    return TileMap(dims, byte_strides, box, cols * item)
 
 
 def fused_qkv_attention_plain(qkv: torch.Tensor, lengths: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -72,9 +125,10 @@ def fused_qkv_attention(qkv: torch.Tensor, lengths: torch.Tensor, num_heads: int
     _cuda.require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
     _cuda.require(lengths.shape == (b,) and lengths.device == qkv.device, "lengths must be (B,) on the device")
     lengths = lengths.to(torch.int32).contiguous()
+    geom = tile_map(qkv, hd).as_c()
     out = torch.empty((b, t, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     _cuda.launch("pflash", "pflash_bf16", KERNEL_NAME, _cuda.ptr(qkv), _cuda.ptr(lengths), _cuda.ptr(out),
-                 *map(_cuda.c_int, (b, t, num_heads, hd)), _cuda.stream(qkv.device))
+                 *map(_cuda.c_int, (b, t, num_heads, hd)), geom, _cuda.stream(qkv.device))
     return out
 
 
@@ -114,8 +168,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, len
 
 
 def _strides(x: torch.Tensor) -> list:
+    """The batch, head and time strides of the (B, H, T, hd) output, which the kernel writes by stride."""
     _cuda.require(x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0,
-                  "q, k, v and out need a contiguous, 16-byte aligned head dim and strides that are multiples of 8")
+                  "out needs a contiguous, 16-byte aligned head dim and strides that are multiples of 8")
     return [_cuda.c_int64(s) for s in x.stride()[:3]]
 
 
@@ -139,10 +194,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: 
     _cuda.require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
     _cuda.require(lengths.shape == (b,) and lengths.device == q.device, "lengths must be (B,) on the device")
     lengths = lengths.to(torch.int32).contiguous()
+    geoms = [tile_map(z, hd).as_c() for z in (q, k, v)]
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     _cuda.launch("flash", "flash_attention_bf16", FLASH_KERNEL_NAME, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v),
-                 _cuda.ptr(lengths), _cuda.ptr(out), *map(_cuda.c_int, (b, h, t, hd)),
-                 *_strides(q), *_strides(k), *_strides(v), *_strides(out), _cuda.stream(q.device))
+                 _cuda.ptr(lengths), _cuda.ptr(out), *map(_cuda.c_int, (b, h, t, hd)), *geoms,
+                 *_strides(out), _cuda.stream(q.device))
     return out
 
 

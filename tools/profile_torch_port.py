@@ -30,16 +30,32 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
-# kernel-name fragments of each reported group
+# kernel-name fragments of each reported group (the hand kernels by their
+# device-function names, "::" included so that B5's fragment does not match B1's)
 GROUPS = {
-    "B1 pflash": ("pflash_kernel",),
-    "B2 ln_ffn": ("ln_ffn_kernel<",),
-    "B3 ln_ffn_int8": ("ln_ffn_int8_kernel<",),
-    "B4 convnext_dw": ("convnext_dw_kernel<",),
-    "B5 flash": ("flash_attn_kernel<",),
+    "B1 pflash": ("::pflash_sm90_kernel<",),
+    "B2 ln_ffn": ("::ln_ffn_kernel<",),
+    "B3 ln_ffn_int8": ("::ln_ffn_int8_kernel<",),
+    "B4 convnext_dw": ("::convnext_dw_kernel<",),
+    "B5 flash": ("::flash_sm90_kernel<",),
     "host-to-device copies": ("Memcpy HtoD",),
     "GEMMs": ("gemm", "nvjet"),
 }
+# launch-count key of each hand-kernel wrapper (before any ":shape") -> its group
+LAUNCH_GROUPS = {
+    "pflash_attention": "B1 pflash",
+    "ln_ffn_bf16": "B2 ln_ffn",
+    "ln_ffn_int8": "B3 ln_ffn_int8",
+    "convnext_dw": "B4 convnext_dw",
+    "flash_attention": "B5 flash",
+}
+
+
+def unmatched_groups(launches: dict, groups_ms: dict) -> list:
+    """The groups of hand kernels that the traced call launched (by the
+    wrappers' launch counts) but that no traced kernel name matched."""
+    launched = {LAUNCH_GROUPS[key.split(":")[0]] for key, n in launches.items() if n}
+    return sorted(g for g in launched if not groups_ms.get(g))
 
 
 # configuration name -> AudioCodec arguments
@@ -59,11 +75,14 @@ def profile_stage(torch, fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from simwhisper_codec_tpu_torch.ops import _cuda
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    _cuda.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -78,6 +97,9 @@ def profile_stage(torch, fn):
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     groups = {g: sum(ms for k, ms, _ in rows if any(f in k for f in frags)) for g, frags in GROUPS.items()}
+    missing = unmatched_groups(_cuda.launch_counts, groups)
+    if missing:
+        raise RuntimeError(f"launched but matched by no traced kernel name: {missing} (GROUPS is stale)")
     return {"wall_ms": plain_wall_ms, "traced_wall_ms": wall_ms, "device_ms": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / plain_wall_ms),
             "device_launches": sum(c for _, _, c in rows), "groups_ms": groups,
