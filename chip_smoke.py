@@ -6,7 +6,9 @@ Phases, any failure exits non-zero:
      nvcc (sm_90a), one nvcc each, in parallel;
   2. hold each kernel against its plain PyTorch version at the main paths'
      shapes (batch 8, bf16) and time kernel, plain version and, where one
-     exists, a single PyTorch library call computing the same function;
+     exists, a single PyTorch library call computing the same function (for
+     B2 and B3, which no single call computes, the chain of library calls
+     as ``library_chain_ms``, and each of their passes alone as ``pass_ms``);
   3. run full-width random weights (config/SimWhisperCodec.yaml, fixed seed)
      through ``AudioCodec.encode`` + ``decode`` in parity, fast, fast-int8
      and fast with the flash attention core and the whole-block Vocos kernel
@@ -89,12 +91,18 @@ def ptxas_report(log_text: str) -> dict:
 
 
 def log_build_reports(build_dir: Path, names) -> None:
-    """Print each kernel instantiation's registers and spill bytes from its build log."""
+    """Print each kernel instantiation's registers and spill bytes from its
+    build log, and every ptxas performance warning there (C7512 "wgmma ...
+    serialized", C7508 "setmaxnreg ignored")."""
     for name in names:
         path = build_dir / f"{name}.log"
-        for fn, r in (ptxas_report(path.read_text()) if path.exists() else {}).items():
+        text = path.read_text() if path.exists() else ""
+        for fn, r in ptxas_report(text).items():
             log(f"[build] {name}.cu {fn}: {r.get('registers')} registers, "
                 f"spill stores {r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B")
+        for line in text.splitlines():
+            if re.search(r"C75\d\d", line):
+                log(f"[build] {name}.cu warning: {line.strip()[:300]}")
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -145,6 +153,42 @@ def check_kernel(torch, name, kernel, plain, args, atol, rtol, flops, peak, nbyt
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, **extra}
+
+
+def library_chain_bf16(torch, x, res, ln_w, ln_b, w1, b1, w2, b2, gamma, eps):
+    """B2's function as five PyTorch calls (no single call computes the chain):
+    a yardstick of the library's GEMMs, never on the port's path."""
+    F = torch.nn.functional
+    h = F.gelu(torch.addmm(b1, F.layer_norm(x, (x.shape[1],), ln_w, ln_b, eps), w1.t()), approximate="tanh")
+    y = torch.addmm(b2, h, w2.t())
+    return res + (y if gamma is None else gamma * y)
+
+
+def library_chain_int8(torch, x, res, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps):
+    """B3's function as PyTorch calls: row quantisation in torch ops and two
+    ``torch._int_mm`` products with their rescales; a yardstick only."""
+    F = torch.nn.functional
+
+    def quant(v):
+        s = v.abs().amax(-1, keepdim=True) / 127.0
+        s = torch.where(s == 0, torch.ones_like(s), s)
+        return torch.round(v / s).to(torch.int8), s
+
+    xq, xs = quant(F.layer_norm(x.float(), (x.shape[1],), ln_w.float(), ln_b.float(), eps))
+    h = F.gelu(torch._int_mm(xq, w1q.t()).float() * xs * s1 + b1.float(), approximate="tanh")
+    hq, hs = quant(h)
+    y = torch._int_mm(hq, w2q.t()).float() * hs * s2 + b2.float()
+    return (res.float() + (y if gamma is None else gamma.float() * y)).to(x.dtype)
+
+
+def pass_times(torch, timers: dict, name: str) -> dict:
+    """Device time of each pass of a B2/B3 call alone (CUDA events), after
+    one run of all passes in order to fill the shared workspaces."""
+    for run in timers.values():
+        run()
+    out = {p: time_ms(torch, run, 10) for p, run in timers.items()}
+    log(f"[kernel] {name} passes (ms): {json.dumps(out)}")
+    return out
 
 
 def random_block(torch, randn, c, inter):
@@ -225,7 +269,8 @@ def kernel_phase(torch):
     # that row's second-stage roundings (measured worst case 0.0156 on the
     # H100 at the transformer shape).
     # B2 and B3 at the transformer FFN shape (residual = x, gamma = 1) and the
-    # Vocos ConvNeXt shape (residual != x, gamma = layer scale)
+    # Vocos ConvNeXt shape (residual != x, gamma = layer scale).  The bound is
+    # the fused function's; the h round trip of the pass design is not in it.
     for (m, c, inter, eps, vocos) in ((8 * 1500, 768, 3072, 1e-5, False), (8 * 3000, 512, 4096, 1e-6, True)):
         x = randn(m, c)
         res = randn(m, c) if vocos else x
@@ -238,18 +283,23 @@ def kernel_phase(torch):
         act_bytes = (3 if vocos else 2) * m * c * 2
         ops = 4.0 * m * c * inter
         shape = f"{c}x{inter}"
-        rows.append(check_kernel(torch, f"ln_ffn_bf16:{shape}", fc.fused_ln_ffn, fc.fused_ln_ffn_plain,
-                                 (x, res, ln_w, ln_b, w1b, b1, w2b, b2, gamma, eps), 1e-2, 1.6e-2, ops,
-                                 H100_BF16_FLOPS, act_bytes + 2 * c * inter * 2 + (2 * c + inter) * 2,
+        args = (x, res, ln_w, ln_b, w1b, b1, w2b, b2, gamma, eps)
+        rows.append(check_kernel(torch, f"ln_ffn_bf16:{shape}", fc.fused_ln_ffn, fc.fused_ln_ffn_plain, args,
+                                 1e-2, 1.6e-2, ops, H100_BF16_FLOPS, act_bytes + 2 * c * inter * 2 + (2 * c + inter) * 2,
                                  "simwhisper_codec_tpu/ops/fused_convnext.py:38",
-                                 "simwhisper_codec_tpu_torch/csrc/ln_ffn.cu", iters=10))
+                                 "simwhisper_codec_tpu_torch/csrc/ln_ffn.cu", iters=10,
+                                 library_chain_ms=lambda: library_chain_bf16(torch, *args)))
+        rows[-1]["pass_ms"] = pass_times(torch, fc.ffn_pass_timers("bf16", *args), rows[-1]["name"])
         w1q, s1 = quantize_weight(w1)
         w2q, s2 = quantize_weight(w2)
+        args = (x, res, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps)
         rows.append(check_kernel(torch, f"ln_ffn_int8:{shape}", fc.fused_ln_ffn_int8, fc.fused_ln_ffn_int8_plain,
-                                 (x, res, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps), 4e-2, 1.6e-2, ops,
-                                 H100_INT8_OPS, act_bytes + 2 * c * inter + (inter + c) * 4 + (2 * c + inter) * 2,
+                                 args, 4e-2, 1.6e-2, ops, H100_INT8_OPS,
+                                 act_bytes + 2 * c * inter + (inter + c) * 4 + (2 * c + inter) * 2,
                                  "simwhisper_codec_tpu/ops/fused_convnext.py:296",
-                                 "simwhisper_codec_tpu_torch/csrc/ln_ffn_int8.cu", iters=10))
+                                 "simwhisper_codec_tpu_torch/csrc/ln_ffn_int8.cu", iters=10,
+                                 library_chain_ms=lambda: library_chain_int8(torch, *args)))
+        rows[-1]["pass_ms"] = pass_times(torch, fc.ffn_pass_timers("int8", *args), rows[-1]["name"])
     # B4: the whole Vocos ConvNeXt block at the Vocos shape, the virtual
     # right edge inside the last tile; same bf16 tolerance as B2 (the f32
     # depthwise sum and LN agree to f32 rounding, the rest is B2's chain)
@@ -293,17 +343,21 @@ def check_other_shapes(torch, randn, fa, fc, quantize_weight):
         for fv in (None, 150):
             agree(f"convnext_dw:{c}x{inter} frame_valid={fv}", fc.fused_convnext_block_dw(x, block, fv),
                   fc.fused_convnext_block_dw_plain(x, block, fv), 1e-2)
-    for c, inter in ((64, 128), (256, 192)):
-        x, res = randn(301, c), randn(301, c)
-        w1 = randn(inter * 2, c, scale=c ** -0.5, dtype=torch.float32)[:inter]
-        w2 = randn(c, inter, scale=inter ** -0.5, dtype=torch.float32)
-        vecs = (randn(c) + 1.0, randn(c, scale=0.1), randn(inter, scale=0.02), randn(c, scale=0.02), randn(c))
-        args = (x, res, vecs[0], vecs[1], w1.to(torch.bfloat16), vecs[2], w2.to(torch.bfloat16), vecs[3], vecs[4], 1e-6)
-        agree(f"ln_ffn_bf16:{c}x{inter}", fc.fused_ln_ffn(*args), fc.fused_ln_ffn_plain(*args), 1e-2)
-        if inter % 64 == 0:
-            (w1q, s1), (w2q, s2) = quantize_weight(w1.contiguous()), quantize_weight(w2)
-            args = (x, res, vecs[0], vecs[1], w1q, s1, vecs[2], w2q, s2, vecs[3], vecs[4], 1e-6)
-            agree(f"ln_ffn_int8:{c}x{inter}", fc.fused_ln_ffn_int8(*args), fc.fused_ln_ffn_int8_plain(*args), 4e-2)
+    # ragged M (1 row; 127, one short of a block tile; 301), narrow C and I
+    for m in (1, 127, 301):
+        for c, inter in ((64, 128), (256, 192)):
+            x, res = randn(m, c), randn(m, c)
+            w1 = randn(inter * 2, c, scale=c ** -0.5, dtype=torch.float32)[:inter]
+            w2 = randn(c, inter, scale=inter ** -0.5, dtype=torch.float32)
+            vecs = (randn(c) + 1.0, randn(c, scale=0.1), randn(inter, scale=0.02), randn(c, scale=0.02), randn(c))
+            args = (x, res, vecs[0], vecs[1], w1.to(torch.bfloat16), vecs[2], w2.to(torch.bfloat16), vecs[3], vecs[4],
+                    1e-6)
+            agree(f"ln_ffn_bf16:{c}x{inter} M={m}", fc.fused_ln_ffn(*args), fc.fused_ln_ffn_plain(*args), 1e-2)
+            if inter % 64 == 0:
+                (w1q, s1), (w2q, s2) = quantize_weight(w1.contiguous()), quantize_weight(w2)
+                args = (x, res, vecs[0], vecs[1], w1q, s1, vecs[2], w2q, s2, vecs[3], vecs[4], 1e-6)
+                agree(f"ln_ffn_int8:{c}x{inter} M={m}", fc.fused_ln_ffn_int8(*args),
+                      fc.fused_ln_ffn_int8_plain(*args), 4e-2)
 
 
 def expected_launches(label: str, cfg, n_tok: int, n_detok: int) -> dict:

@@ -35,17 +35,16 @@
 //
 // The tensor maps are encoded on the host for each call, from the geometry
 // that ops/flash_attention.py::tile_map computes (dims, byte strides, box,
-// swizzle), and passed to the kernels as __grid_constant__ parameters.
-// cuTensorMapEncodeTiled comes from the driver through the runtime's
-// entry-point query (cudaGetDriverEntryPointByVersion from CUDA 12.5 on,
-// cudaGetDriverEntryPoint before), so the libraries need no -lcuda.
+// swizzle), and passed to the kernels as __grid_constant__ parameters.  The
+// barriers, the ring, the TMA loads, the descriptors and the encoding are
+// the shared Hopper primitives of csrc/sm90.cuh.
 #pragma once
 
-#include <cuda.h>
-
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace attn {
+
+using namespace sm90;
 
 constexpr int BQ = 128;            // query rows of a block
 constexpr int BK = 64;             // keys of a tile (= rows of every TMA box)
@@ -54,8 +53,6 @@ constexpr int CONSUMER_WARPS = 8;  // two warpgroups
 constexpr int THREADS = CONSUMER_WARPS * 32 + 32;
 constexpr int STAGES = 3;
 constexpr float LOG2E = 1.4426950408889634f;
-// a failed cuTensorMapEncodeTiled returns this plus its CUresult
-constexpr int TENSOR_MAP_ERROR = 10000;
 
 // One 64-row x HD bf16 tile in shared memory, as the TMA writes it.
 template <int HD>
@@ -81,86 +78,6 @@ struct Smem {
   static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1) + 1024;  // + slack to align the base
 };
 
-__device__ __forceinline__ uint32_t smem_base(const void* raw) {
-  return ((uint32_t)__cvta_generic_to_shared(raw) + 1023u) & ~1023u;
-}
-
-// ---- mbarriers --------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@!P1 bra LAB_WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// The ring of STAGES buffers: use n of stage s is item i = s + n STAGES.
-struct Ring {
-  uint32_t full, empty;
-  __device__ __forceinline__ uint32_t full_bar(int i) const { return full + 8 * (i % STAGES); }
-  __device__ __forceinline__ uint32_t empty_bar(int i) const { return empty + 8 * (i % STAGES); }
-  __device__ __forceinline__ uint32_t parity(int i) const { return (uint32_t)(i / STAGES) & 1u; }
-  // producer: wait until item i - STAGES has been released
-  __device__ __forceinline__ void wait_empty(int i) const {
-    if (i >= STAGES) mbar_wait(empty_bar(i), (uint32_t)(i / STAGES - 1) & 1u);
-  }
-  __device__ __forceinline__ void wait_full(int i) const { mbar_wait(full_bar(i), parity(i)); }
-  // consumer warp: release item i (one arrival per warp, from lane 0)
-  __device__ __forceinline__ void release(int i) const {
-    if ((threadIdx.x & 31) == 0) mbar_arrive(empty_bar(i));
-  }
-};
-
-// Initialise the ring's and the q barrier (one thread), before the
-// __syncthreads that precedes the split into producer and consumers.
-__device__ __forceinline__ void init_barriers(const Ring& ring, uint32_t q_bar) {
-  for (int s = 0; s < STAGES; ++s) {
-    mbar_init(ring.full + 8 * s, 1);
-    mbar_init(ring.empty + 8 * s, CONSUMER_WARPS);
-  }
-  mbar_init(q_bar, 1);
-  mbar_fence_init();
-}
-
-// ---- TMA ----------------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // One 64-row x HD tile: COL_BOXES boxes at columns col, col + 64.  `outer`
 // are the coordinates of the map's outer dims (batch; or head, batch).
 template <int HD, class... Outer>
@@ -172,24 +89,12 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* map, uint32_t dst, 
     tma_load(dst + x * TL::BOX_BYTES, map, bar, col + x * TL::BOX_COLS, row, outer...);
 }
 
-// ---- wgmma ----------------------------------------------------------------------
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle layout code.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// keeps the compiler from moving accumulator accesses across a wgmma wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+// Initialise the ring's and the q barrier (one thread), before the
+// __syncthreads that precedes the split into producer and consumers.
+__device__ __forceinline__ void init_barriers(const Ring<STAGES>& ring, uint32_t q_bar) {
+  ring.init(CONSUMER_WARPS);
+  mbar_init(q_bar, 1);
+  mbar_fence_init();
 }
 
 // D (64 x N, f32) = or += A (64 x 16, K-major smem) B (16 x N, K-major smem)
@@ -381,58 +286,14 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 2], const uint32_t (&a)[
 
 // ---- host: tensor maps ---------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // Encode the map of one bf16 operand at `base` from the geometry `g` of
-// ops/flash_attention.py::tile_map: rank, dims[5] (elements, innermost
-// first), byte strides[4] (of dims 1..), box[5], swizzle bytes.  The box
-// must be the kernel's tile box; returns 0 or an error code.
+// ops/flash_attention.py::tile_map; the box must be the kernel's tile box.
 template <int HD>
 int encode_tile_map(CUtensorMap* map, const void* base, const long long* g) {
   using TL = Tile<HD>;
-  const int rank = (int)g[0];
-  if (rank < 3 || rank > 5 || g[10] != TL::BOX_COLS || g[11] != BK || g[15] != TL::ROW_BYTES)
-    return (int)cudaErrorInvalidValue;
-  cuuint64_t dims[5], strides[4];
-  cuuint32_t box[5], elem[5];
-  for (int i = 0; i < rank; ++i) {
-    dims[i] = (cuuint64_t)g[1 + i];
-    box[i] = (cuuint32_t)g[10 + i];
-    elem[i] = 1;
-    if (i > 0) strides[i - 1] = (cuuint64_t)g[5 + i];
-    if (i > 1 && box[i] != 1) return (int)cudaErrorInvalidValue;
-  }
-  const CUtensorMapSwizzle swizzle = TL::ROW_BYTES == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : TL::ROW_BYTES == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), dims,
-                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)res;
-}
-
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (g[0] < 3) return (int)cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, g, TL::BOX_COLS, BK, TL::ROW_BYTES);
 }
 
 }  // namespace attn
+

@@ -21,12 +21,12 @@
 //     the last tile may be ragged;
 //   * one warp per row forms xdw in f32 registers and normalises it, and
 //     writes LN(xdw) as bf16 to shared memory;
-//   * the chain of ln_ffn_chain.cuh (B2's) runs over those rows; the window
+//   * the chain of ln_ffn_chain.cuh runs over those rows; the window
 //     shares its shared memory with the chain's weight buffers (it is dead
 //     once LN(xdw) is written), so a block needs no more shared memory than
-//     B2's, and the residual rows are read from x in the epilogue;
-//   * up to C = 512 the registers are capped for two blocks an SM, as B2
-//     gets by itself: left alone, the compiler keeps the 7 x C/32 tap
+//     the chain alone, and the residual rows are read from x in the epilogue;
+//   * up to C = 512 the registers are capped for two blocks an SM, as the
+//     chain alone gets by itself: left alone, the compiler keeps the 7 x C/32 tap
 //     weights of the row loop in registers (207 at C = 512), which halves
 //     the blocks an SM holds.
 #include "ln_ffn_chain.cuh"

@@ -61,7 +61,7 @@ __global__ void __launch_bounds__(THREADS, HD <= 64 ? 2 : 1)
   using SM = Smem<HD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_base(smem_raw);
-  const Ring ring{base + SM::BAR, base + SM::BAR + 8 * STAGES};
+  const Ring<STAGES> ring{base + SM::BAR, base + SM::BAR + 8 * STAGES};
   const uint32_t q_bar = base + SM::BAR + 16 * STAGES;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -176,7 +176,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
 // given by its batch, head and time strides (in elements, multiples of 8;
 // the head dim contiguous and 16-byte aligned); lengths (B,) int32; HD in
 // {16, 32, 64, 128}.  Returns 0 on success, else the CUDA error of the
-// launch or attn::TENSOR_MAP_ERROR + the driver's CUresult.
+// launch or sm90::TENSOR_MAP_ERROR + the driver's CUresult.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, const void* lengths, void* out,
                                     int B, int H, int T, int HD, const long long* qg, const long long* kg,
                                     const long long* vg, long long osb, long long osh, long long ost,

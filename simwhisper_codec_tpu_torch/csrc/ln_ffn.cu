@@ -1,81 +1,145 @@
-// Fused LayerNorm -> W1 -> tanh-GELU -> W2 -> layer scale -> residual, bf16.
+// LayerNorm -> W1 -> tanh-GELU -> W2 -> layer scale -> residual, bf16, in
+// three passes on the Hopper GEMM core of csrc/ffn_sm90.cuh.
 //
 // Replaces the TPU kernel simwhisper_codec_tpu/ops/fused_convnext.py
 // fused_ln_ffn (_kernel + _ln_ffn_body): out = res + gamma * (GELU(LN(x) W1^T + b1) W2^T + b2)
 // over (M, C) rows, with W1 (I, C) and W2 (C, I) in nn.Linear layout.
 //
 // Bound on the H100: the two products (4 M C I operations) against the
-// bf16 tensor-core rate; the activations and weights are a few tens of MB.
-// The TPU kernel pinned both weights in VMEM; at 4.5-4.7 MB they do not fit
-// in shared memory, so this kernel keeps the (BM, I) intermediate on chip
-// instead and streams the weights from L2: a block owns BM = 32 rows, one
-// warp per row normalises them in f32 and keeps LN(x) as bf16 in shared
-// memory, then runs the chain of ln_ffn_chain.cuh over them.
-#include "ln_ffn_chain.cuh"
+// bf16 tensor-core rate.  The TPU kernel pinned both weights in VMEM and
+// kept the (block_m, I) intermediate on chip, so no pass touched HBM.  On
+// Hopper a fused chain of wgmma-sized blocks (128 rows) would hold a
+// (128, C) f32 accumulator, C / 2 registers a thread (384 at C = 768),
+// beyond the 255 cap; so the chain is split into passes, each a GEMM that
+// Hopper runs well, and the intermediate makes one round trip through
+// device memory (2 M I bf16 bytes: 147 MB, ~0.04 ms at 768 x 3072 and
+// M = 12000, small next to the products):
+//   1. ln_ffn_bf16_rows_kernel: LN in f32 (warp_layer_norm, one warp a row),
+//      xn = bf16(LN(x)) -> workspace (M, C);
+//   2. ln_ffn_bf16_up_kernel: h = bf16(GELU(xn W1^T + b1)) -> workspace (M, I);
+//   3. ln_ffn_bf16_down_kernel: out = bf16(res + gamma (h W2^T + b2)).
+// The rounding points are the plain version's: xn and h to bf16, out once.
+#include "ffn_sm90.cuh"
 
 namespace {
 
-using ffn_chain::BM;
-using ffn_chain::THREADS;
+using ffn_sm90::Bf16;
+
+constexpr int ROWS_THREADS = 256;  // 8 warps, one row each
 
 template <int NT>  // C = 64 * NT
-__global__ void __launch_bounds__(THREADS) ln_ffn_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ res, const bf16* __restrict__ ln_w,
-    const bf16* __restrict__ ln_b, const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-    const bf16* __restrict__ w2, const bf16* __restrict__ b2, const bf16* __restrict__ gamma,
-    bf16* __restrict__ out, int M, int I, float eps) {
+__global__ void __launch_bounds__(ROWS_THREADS) ln_ffn_bf16_rows_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b,
+    bf16* __restrict__ xn, int M, float eps) {
   constexpr int C = 64 * NT;
-  constexpr int XS = C + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xn_s = reinterpret_cast<bf16*>(smem);  // BM x XS, then the chain's buffers
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * BM;
-
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int row = row0 + r;
-    float v[C / 32];
-    warp_layer_norm<C / 32>(x + (size_t)row * C, ln_w, ln_b, eps, row < M, v);
+  const int row = blockIdx.x * (ROWS_THREADS / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  float v[C / 32];
+  warp_layer_norm<C / 32>(x + (size_t)row * C, ln_w, ln_b, eps, true, v);
 #pragma unroll
-    for (int i = 0; i < C / 32; ++i)
-      xn_s[r * XS + lane + 32 * i] = __float2bfloat16(row < M ? v[i] : 0.f);
-  }
-  ffn_chain::run<NT>(xn_s, w1, b1, w2, b2, gamma, res + (size_t)row0 * C, out + (size_t)row0 * C,
-                     min(BM, M - row0), I);
+  for (int i = 0; i < C / 32; ++i) xn[(size_t)row * C + lane + 32 * i] = __float2bfloat16(v[i]);
 }
+
+// h = bf16(GELU(acc + b1)), (M, N = I), staged in shared memory for one TMA
+// store of the tile (columns past N are computed on zeros and not stored)
+struct UpEpilogue {
+  static constexpr int STAGED_ITEM = 2;
+  const bf16* b1;
+  int N;
+  FFN_EPILOGUE_APPLY(float)
+  template <int BN, bool CLIP>
+  __device__ __forceinline__ void body(const float (&d)[BN / 2], const ffn_sm90::Frag& f) const {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = f.col + 8 * j;  // N is even: c + 1 < N with c
+      const float bb0 = !CLIP || c < N ? bf(b1[c]) : 0.f, bb1 = !CLIP || c < N ? bf(b1[c + 1]) : 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        ffn_sm90::st_shared(f.smem + ffn_sm90::swizzle128(f.lrow + 8 * r, 2 * (f.lcol + 8 * j), ffn_sm90::BM),
+                            pack_bf16(gelu_tanh(d[4 * j + 2 * r] + bb0), gelu_tanh(d[4 * j + 2 * r + 1] + bb1)));
+    }
+  }
+};
+
+// out = bf16(res + gamma (acc + b2)), (M, N = C)
+struct DownEpilogue {
+  static constexpr int STAGED_ITEM = 0;
+  const bf16 *b2, *gamma, *res;
+  bf16* out;
+  int M, N;
+  FFN_EPILOGUE_APPLY(float)
+  template <int BN, bool CLIP>
+  __device__ __forceinline__ void body(const float (&d)[BN / 2], const ffn_sm90::Frag& f) const {
+    const bool in[2] = {f.row < M, f.row + 8 < M};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = f.col + 8 * j;
+      if (CLIP && c >= N) continue;
+      const float g0 = bf(gamma[c]), g1 = bf(gamma[c + 1]), bb0 = bf(b2[c]), bb1 = bf(b2[c + 1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (!in[r]) continue;
+        const size_t o = (size_t)(f.row + 8 * r) * N + c;
+        *reinterpret_cast<uint32_t*>(&out[o]) = pack_bf16(bf(res[o]) + g0 * (d[4 * j + 2 * r] + bb0),
+                                                          bf(res[o + 1]) + g1 * (d[4 * j + 2 * r + 1] + bb1));
+      }
+    }
+  }
+};
+
+FFN_PASS_KERNEL(ln_ffn_bf16_up_kernel, Bf16, UpEpilogue)
+FFN_PASS_KERNEL(ln_ffn_bf16_down_kernel, Bf16, DownEpilogue)
 
 template <int NT>
-cudaError_t launch(const void* x, const void* res, const void* ln_w, const void* ln_b, const void* w1,
-                   const void* b1, const void* w2, const void* b2, const void* gamma, void* out, int M,
-                   int I, float eps, cudaStream_t stream) {
-  const size_t smem = ffn_chain::smem_bytes<NT>();
-  cudaError_t err = cudaFuncSetAttribute(ln_ffn_kernel<NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((M + BM - 1) / BM);
-  ln_ffn_kernel<NT><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)x, (const bf16*)res, (const bf16*)ln_w, (const bf16*)ln_b, (const bf16*)w1,
-      (const bf16*)b1, (const bf16*)w2, (const bf16*)b2, (const bf16*)gamma, (bf16*)out, M, I, eps);
-  return cudaGetLastError();
+int rows_pass(const void* x, const void* ln_w, const void* ln_b, void* xn, int M, float eps, cudaStream_t s) {
+  const int grid = (M + ROWS_THREADS / 32 - 1) / (ROWS_THREADS / 32);
+  ln_ffn_bf16_rows_kernel<NT><<<grid, ROWS_THREADS, 0, s>>>((const bf16*)x, (const bf16*)ln_w, (const bf16*)ln_b,
+                                                            (bf16*)xn, M, eps);
+  return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// C must be a multiple of 64 up to 768 and I a multiple of 32; all tensors
-// contiguous bf16.  Returns the CUDA error of the launch (0 on success).
-extern "C" int ln_ffn_bf16(const void* x, const void* res, const void* ln_w, const void* ln_b,
-                           const void* w1, const void* b1, const void* w2, const void* b2,
-                           const void* gamma, void* out, int M, int C, int I, float eps,
-                           void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+int rows_pass_any(int C, const void* x, const void* ln_w, const void* ln_b, void* xn, int M, float eps,
+                  cudaStream_t s) {
   switch (C / 64) {
 #define CASE(NT) \
   case NT:       \
-    return (int)launch<NT>(x, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, I, eps, s);
+    return rows_pass<NT>(x, ln_w, ln_b, xn, M, eps, s);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6)
     CASE(7) CASE(8) CASE(9) CASE(10) CASE(11) CASE(12)
 #undef CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Passes, a bit each (1 rows, 2 up, 4 down; the wrapper runs all three, a
+// timer one at a time).  C a multiple of 64 up to 768, I a multiple of 32;
+// x, res, the bf16 vectors and the (I, C) W1 / (C, I) W2 contiguous bf16;
+// xn (M, C) and h (M, I) bf16 workspaces; g_* the tensor-map geometries of
+// xn, W1, h and W2 (ops/fused_convnext.py::ffn_tile_maps).  Returns 0, or
+// the first error of the passes: a CUDA error or sm90::TENSOR_MAP_ERROR +
+// the driver's CUresult.
+extern "C" int ln_ffn_bf16(const void* x, const void* res, const void* ln_w, const void* ln_b, const void* w1,
+                           const void* b1, const void* w2, const void* b2, const void* gamma, void* out, void* xn,
+                           void* h, int M, int C, int I, float eps, const long long* g_xn, const long long* g_w1,
+                           const long long* g_h, const long long* g_w2, int passes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = 0;
+  if (passes & 1) err = rows_pass_any(C, x, ln_w, ln_b, xn, M, eps, s);
+  if (err == 0 && (passes & 2))
+    err = g_w1[11] != ffn_sm90::UP_BN
+              ? (int)cudaErrorInvalidValue
+              : ffn_sm90::launch_pass<Bf16, ffn_sm90::UP_BN>(ln_ffn_bf16_up_kernel<ffn_sm90::UP_BN>, xn, g_xn, w1,
+                                                             g_w1, h, g_h, {M, I, C}, UpEpilogue{(const bf16*)b1, I}, s);
+  if (err == 0 && (passes & 4)) {
+    const DownEpilogue epi{(const bf16*)b2, (const bf16*)gamma, (const bf16*)res, (bf16*)out, M, C};
+    err = ffn_sm90::with_block_n(g_w2[11], [&](auto bn) {
+      constexpr int BN = decltype(bn)::value;
+      return ffn_sm90::launch_pass<Bf16, BN>(ln_ffn_bf16_down_kernel<BN>, h, g_h, w2, g_w2, nullptr, nullptr,
+                                             {M, C, I}, epi, s);
+    });
+  }
+  return err;
 }

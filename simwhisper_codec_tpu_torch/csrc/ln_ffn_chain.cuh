@@ -1,6 +1,7 @@
 // The bf16 W1 -> tanh-GELU -> W2 -> layer scale -> residual chain of a block
-// of BM = 32 normalised rows, shared by csrc/ln_ffn.cu (B2) and
-// csrc/convnext_dw.cu (B4).
+// of BM = 32 normalised rows, as csrc/convnext_dw.cu (B4) runs it after its
+// depthwise prologue.  (B2, csrc/ln_ffn.cu, runs the same function as
+// passes on the TMA + wgmma core of csrc/ffn_sm90.cuh.)
 //
 // The caller has written LN(x) of its rows as bf16 into xn_s (BM rows of
 // stride C + 8, zeros for rows past the end).  The chain keeps the

@@ -1,4 +1,5 @@
-// Fused int8 LayerNorm -> W1 -> tanh-GELU -> W2 -> layer scale -> residual.
+// int8 LayerNorm -> W1 -> tanh-GELU -> W2 -> layer scale -> residual, in
+// four passes on the Hopper GEMM core of csrc/ffn_sm90.cuh.
 //
 // Replaces the TPU kernel simwhisper_codec_tpu/ops/fused_convnext.py
 // fused_ln_ffn_int8 (_kernel_int8): LN in f32; per-row absmax int8
@@ -10,54 +11,59 @@
 //
 // Bound on the H100: the two products (4 M C I integer operations) against
 // the int8 tensor-core rate.  The second quantisation needs each row's
-// absmax over all of I before the second product; the TPU kernel held the
-// whole (block_m, I) f32 block in VMEM, which for I = 4096 is 16 KB a row
-// and too much for shared memory at a useful block height.  So the kernel
-// makes two passes over I for a block of BM = 32 rows:
-//   pass 1 computes h = GELU(...) chunk by chunk and keeps only each row's
-//          absmax (integer products are exact, so pass 2 recomputes the same h);
-//   pass 2 recomputes h, quantises it with the final row scale into shared
-//          memory and accumulates the second product in s32 registers.
-// That is 1.5x the products of one pass, at twice the bf16 rate.  Division
-// by the scale is a true IEEE division and rounding is rintf (half to even),
-// as in the JAX kernel; the h epilogue uses explicitly rounded operations so
-// no FMA contraction moves a value across a quantisation boundary.
-#include "common.cuh"
+// absmax of h over all of I before any of h can be quantised; the TPU
+// kernel held the whole (block_m, I) f32 block in VMEM.  Here the chain is
+// split into passes (see csrc/ln_ffn.cu for why no fused chain of
+// wgmma-sized blocks fits), and h is formed twice instead of stored in f32
+// (which would be 4 M I bytes written and read: 393 MB at 512 x 4096 and
+// M = 24000, against ~0.08 ms to recompute one int8 product):
+//   1. ln_ffn_int8_rows_kernel: LN, row absmax, xs, xq = rint(v / xs) ->
+//      workspaces xq (M, C) s8 and xs (M,) f32; clears the row's hmax;
+//   2. ln_ffn_int8_upmax_kernel: the s8 product xq W1q^T; its epilogue forms
+//      h and keeps only each row's |h| max: quad shuffles, then one
+//      atomicMax on the float bits per row and tile (|h| >= 0, so the bit
+//      patterns order like unsigned ints);
+//   3. ln_ffn_int8_upq_kernel: the same product; its epilogue forms the same
+//      h (the integer product is exact and the epilogue deterministic, so h
+//      equals pass 2's bit for bit) and writes hq = rint(h / hs) -> workspace
+//      (M, I) s8, hs = hmax / 127 (1 for a zero row);
+//   4. ln_ffn_int8_down_kernel: the s8 product hq W2q^T;
+//      out = res + gamma ((acc hs) s2 + b2).
+// Division by a scale is correctly rounded (a true IEEE division for xq; for
+// hq a per-row reciprocal and one exact-remainder correction) and rounding
+// is half to even, as in the JAX kernel; h and the rescales use explicitly
+// rounded operations so that no FMA contraction moves a value across a
+// quantisation boundary.  hq is clamped to [-127, 127], which changes
+// nothing when the two passes agree (|h| <= hmax) and keeps an int8 from
+// wrapping if they did not.
+#include "ffn_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 32;
-constexpr int IC = 64;
-constexpr int THREADS = 256;
+using ffn_sm90::S8;
+
+constexpr int ROWS_THREADS = 256;  // 8 warps, one row each
 
 template <int NT>  // C = 64 * NT
-struct Smem {
-  static constexpr int C = 64 * NT;
-  static constexpr int XS = C + 16;   // row stride (bytes) of xq_s and w1_s
-  static constexpr int WS = IC + 16;  // row stride of w2_s and hq_s
-  static constexpr size_t bytes =
-      (size_t)BM * XS + (size_t)IC * XS + (size_t)C * WS + (size_t)BM * WS + 3 * BM * sizeof(float);
-};
-
-// h for this warp's two 16 x 8 tiles of the current chunk (rows mt*16.., cols nt0*8..)
-template <int C, int XS>
-__device__ __forceinline__ void first_product(const int8_t* xq_s, const int8_t* w1_s, int mt, int nt0,
-                                              int c[2][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int8_t* A = xq_s + (mt * 16) * XS + 4 * t;
+__global__ void __launch_bounds__(ROWS_THREADS) ln_ffn_int8_rows_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b,
+    int8_t* __restrict__ xq, float* __restrict__ xs_out, unsigned* __restrict__ hmax, int M, float eps) {
+  constexpr int C = 64 * NT;
+  const int row = blockIdx.x * (ROWS_THREADS / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  float v[C / 32];
+  warp_layer_norm<C / 32>(x + (size_t)row * C, ln_w, ln_b, eps, true, v);
+  float amax = 0.f;
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int i = 0; i < C / 32; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  amax = warp_max(amax);
+  float xs = amax / 127.0f;
+  if (xs == 0.f) xs = 1.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0;
-#pragma unroll 4
-  for (int k = 0; k < C; k += 32) {
-    uint32_t a[4] = {ld32(A + g * XS + k), ld32(A + (g + 8) * XS + k), ld32(A + g * XS + k + 16),
-                     ld32(A + (g + 8) * XS + k + 16)};
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int8_t* B = w1_s + ((nt0 + j) * 8 + g) * XS + 4 * t + k;
-      mma_s8(c[j], a, ld32(B), ld32(B + 16));
-    }
+  for (int i = 0; i < C / 32; ++i) xq[(size_t)row * C + lane + 32 * i] = (int8_t)rintf(v[i] / xs);
+  if (lane == 0) {
+    xs_out[row] = xs;
+    hmax[row] = 0u;
   }
 }
 
@@ -65,203 +71,186 @@ __device__ __forceinline__ float h_value(int acc, float xs, float s1, float b1) 
   return gelu_tanh(__fadd_rn(__fmul_rn(__fmul_rn((float)acc, xs), s1), b1));
 }
 
-template <int NT>
-__global__ void __launch_bounds__(THREADS) ln_ffn_int8_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ res, const bf16* __restrict__ ln_w,
-    const bf16* __restrict__ ln_b, const int8_t* __restrict__ w1q, const float* __restrict__ s1,
-    const bf16* __restrict__ b1, const int8_t* __restrict__ w2q, const float* __restrict__ s2,
-    const bf16* __restrict__ b2, const bf16* __restrict__ gamma, bf16* __restrict__ out, int M, int I,
-    float eps) {
-  using S = Smem<NT>;
-  constexpr int C = S::C, XS = S::XS, WS = S::WS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* xq_s = reinterpret_cast<int8_t*>(smem);  // BM x XS
-  int8_t* w1_s = xq_s + BM * XS;                    // IC x XS
-  int8_t* w2_s = w1_s + IC * XS;                    // C  x WS
-  int8_t* hq_s = w2_s + C * WS;                     // BM x WS
-  float* xs_s = reinterpret_cast<float*>(hq_s + BM * WS);
-  float* hs_s = xs_s + BM;
-  unsigned* hmax_s = reinterpret_cast<unsigned*>(hs_s + BM);
+__device__ __forceinline__ float row_scale(const unsigned* hmax, int row) {
+  const float hs = __uint_as_float(hmax[row]) / 127.0f;
+  return hs == 0.f ? 1.f : hs;
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * BM;
+// a / b rounded to nearest from y = RN(1 / b): q = RN(a y), then one
+// correction with the exact remainder a - b q (an FMA), which gives the
+// correctly rounded quotient (Markstein) for the normal, finite operands
+// here, at three full-rate operations instead of a division
+__device__ __forceinline__ float quotient(float a, float b, float y) {
+  const float q = __fmul_rn(a, y);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), y, q);
+}
 
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int row = row0 + r;
-    float v[C / 32];
-    warp_layer_norm<C / 32>(x + (size_t)row * C, ln_w, ln_b, eps, row < M, v);
-    float amax = 0.f;
+// the first product's operands of one epilogue: row scales and W1's columns
+struct UpArgs {
+  const float *xs, *s1;
+  const bf16* b1;
+  unsigned* hmax;
+  int M, N;  // N = I
+};
+
+// pass 2: each row's max |h| over this tile -> atomicMax into hmax
+struct UpMaxEpilogue {
+  static constexpr int STAGED_ITEM = 0;
+  UpArgs p;
+  FFN_EPILOGUE_APPLY(int)
+  template <int BN, bool CLIP>
+  __device__ __forceinline__ void body(const int (&d)[BN / 2], const ffn_sm90::Frag& f) const {
+    const bool in[2] = {f.row < p.M, f.row + 8 < p.M};
+    const float xs[2] = {in[0] ? p.xs[f.row] : 1.f, in[1] ? p.xs[f.row + 8] : 1.f};
+    float mx[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < C / 32; ++i) amax = fmaxf(amax, fabsf(v[i]));
-    amax = warp_max(amax);
-    float xs = amax / 127.0f;
-    if (xs == 0.f || row >= M) xs = 1.f;
-#pragma unroll
-    for (int i = 0; i < C / 32; ++i)
-      xq_s[r * XS + lane + 32 * i] = row < M ? (int8_t)rintf(v[i] / xs) : (int8_t)0;
-    if (lane == 0) {
-      xs_s[r] = xs;
-      hmax_s[r] = 0u;
-    }
-  }
-
-  const int mt = warp >> 2, nt0 = (warp & 3) * 2;  // first product: 2 tiles of the 32 x 64 chunk
-  const int rA = mt * 16 + g, rB = rA + 8;
-
-  // pass 1: each row's absmax of h over all of I
-  float hmaxA = 0.f, hmaxB = 0.f;
-  for (int c0 = 0; c0 < I; c0 += IC) {
-    __syncthreads();
-    for (int i = tid; i < IC * C / 16; i += THREADS) {
-      const int r = i / (C / 16), cv = i % (C / 16);
-      *reinterpret_cast<uint4*>(&w1_s[r * XS + cv * 16]) =
-          *reinterpret_cast<const uint4*>(&w1q[(size_t)(c0 + r) * C + cv * 16]);
-    }
-    __syncthreads();
-    int c[2][4];
-    first_product<C, XS>(xq_s, w1_s, mt, nt0, c);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = c0 + (nt0 + j) * 8 + 2 * t;
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = f.col + 8 * j;
+      if (CLIP && c >= p.N) continue;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float sc = s1[col + e], bb = bf(b1[col + e]);
-        hmaxA = fmaxf(hmaxA, fabsf(h_value(c[j][e], xs_s[rA], sc, bb)));
-        hmaxB = fmaxf(hmaxB, fabsf(h_value(c[j][2 + e], xs_s[rB], sc, bb)));
+        const float sc = p.s1[c + e], bb = bf(p.b1[c + e]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) mx[r] = fmaxf(mx[r], fabsf(h_value(d[4 * j + 2 * r + e], xs[r], sc, bb)));
       }
     }
-  }
 #pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    hmaxA = fmaxf(hmaxA, __shfl_xor_sync(0xffffffffu, hmaxA, o));
-    hmaxB = fmaxf(hmaxB, __shfl_xor_sync(0xffffffffu, hmaxB, o));
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      if ((threadIdx.x & 3) == 0 && in[r]) atomicMax(&p.hmax[f.row + 8 * r], __float_as_uint(mx[r]));
+    }
   }
-  if (t == 0) {  // |h| >= 0, so the float bit patterns order like unsigned ints
-    atomicMax(&hmax_s[rA], __float_as_uint(hmaxA));
-    atomicMax(&hmax_s[rB], __float_as_uint(hmaxB));
-  }
-  __syncthreads();
-  if (tid < BM) {
-    const float hs = __uint_as_float(hmax_s[tid]) / 127.0f;
-    hs_s[tid] = hs == 0.f ? 1.f : hs;
-  }
+};
 
-  int acc[2][NT][4];
+// pass 3: hq = rint(h / hs), (M, N = I) s8, staged in shared memory for one
+// TMA store of the tile (columns past N are computed on zeros and not stored)
+struct UpQuantEpilogue {
+  static constexpr int STAGED_ITEM = 1;
+  UpArgs p;
+  FFN_EPILOGUE_APPLY(int)
+  template <int BN, bool CLIP>
+  __device__ __forceinline__ void body(const int (&d)[BN / 2], const ffn_sm90::Frag& f) const {
+    const bool in[2] = {f.row < p.M, f.row + 8 < p.M};
+    const float xs[2] = {in[0] ? p.xs[f.row] : 1.f, in[1] ? p.xs[f.row + 8] : 1.f};
+    const float hs[2] = {in[0] ? row_scale(p.hmax, f.row) : 1.f, in[1] ? row_scale(p.hmax, f.row + 8) : 1.f};
+    const float hr[2] = {__frcp_rn(hs[0]), __frcp_rn(hs[1])};
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = f.col + 8 * j;  // N is even: c + 1 < N with c
+      const bool col_in = !CLIP || c < p.N;
+      const float sc[2] = {col_in ? p.s1[c] : 0.f, col_in ? p.s1[c + 1] : 0.f};
+      const float bb[2] = {col_in ? bf(p.b1[c]) : 0.f, col_in ? bf(p.b1[c + 1]) : 0.f};
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0;
-
-  // pass 2: requantise h with the row scale, second product
-  const int n_base = warp * (C / 8);
-  for (int c0 = 0; c0 < I; c0 += IC) {
-    __syncthreads();
-    for (int i = tid; i < IC * C / 16; i += THREADS) {
-      const int r = i / (C / 16), cv = i % (C / 16);
-      *reinterpret_cast<uint4*>(&w1_s[r * XS + cv * 16]) =
-          *reinterpret_cast<const uint4*>(&w1q[(size_t)(c0 + r) * C + cv * 16]);
-    }
-    for (int i = tid; i < C * IC / 16; i += THREADS) {
-      const int r = i / (IC / 16), cv = i % (IC / 16);
-      *reinterpret_cast<uint4*>(&w2_s[r * WS + cv * 16]) =
-          *reinterpret_cast<const uint4*>(&w2q[(size_t)r * I + c0 + cv * 16]);
-    }
-    __syncthreads();
-    int c[2][4];
-    first_product<C, XS>(xq_s, w1_s, mt, nt0, c);
-    const float hsA = hs_s[rA], hsB = hs_s[rB];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int lc = (nt0 + j) * 8 + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float sc = s1[c0 + lc + e], bb = bf(b1[c0 + lc + e]);
-        hq_s[rA * WS + lc + e] = (int8_t)rintf(h_value(c[j][e], xs_s[rA], sc, bb) / hsA);
-        hq_s[rB * WS + lc + e] = (int8_t)rintf(h_value(c[j][2 + e], xs_s[rB], sc, bb) / hsB);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < IC; ks += 32) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int8_t* A = hq_s + (m * 16) * WS + ks + 4 * t;
-        a[m][0] = ld32(A + g * WS);
-        a[m][1] = ld32(A + (g + 8) * WS);
-        a[m][2] = ld32(A + g * WS + 16);
-        a[m][3] = ld32(A + (g + 8) * WS + 16);
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int8_t* B = w2_s + (n_base + n * 8 + g) * WS + ks + 4 * t;
-        const uint32_t b0 = ld32(B), b1v = ld32(B + 16);
-        mma_s8(acc[0][n], a[0], b0, b1v);
-        mma_s8(acc[1][n], a[1], b0, b1v);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m * 16 + g + 8 * half, row = row0 + r;
-      if (row >= M) continue;
-      const float hs = hs_s[r];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int col = n_base + n * 8 + 2 * t;
-        float y[2];
+      for (int r = 0; r < 2; ++r) {
+        int q[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float d = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[m][n][2 * half + e], hs), s2[col + e]),
-                                    bf(b2[col + e]));
-          y[e] = bf(gamma[col + e]) * d;
+          const float h = h_value(d[4 * j + 2 * r + e], xs[r], sc[e], bb[e]);
+          q[e] = min(max(__float2int_rn(quotient(h, hs[r], hr[r])), -127), 127);
         }
-        const size_t o = (size_t)row * C + col;
+        ffn_sm90::st_shared(f.smem + ffn_sm90::swizzle128(f.lrow + 8 * r, f.lcol + 8 * j, ffn_sm90::BM),
+                            (uint16_t)((q[0] & 0xff) | ((q[1] & 0xff) << 8)));
+      }
+    }
+  }
+};
+
+// pass 4: out = bf16(res + gamma ((acc hs) s2 + b2)), (M, N = C)
+struct DownEpilogue {
+  static constexpr int STAGED_ITEM = 0;
+  const unsigned* hmax;
+  const float* s2;
+  const bf16 *b2, *gamma, *res;
+  bf16* out;
+  int M, N;
+  FFN_EPILOGUE_APPLY(int)
+  template <int BN, bool CLIP>
+  __device__ __forceinline__ void body(const int (&d)[BN / 2], const ffn_sm90::Frag& f) const {
+    const bool in[2] = {f.row < M, f.row + 8 < M};
+    const float hs[2] = {in[0] ? row_scale(hmax, f.row) : 1.f, in[1] ? row_scale(hmax, f.row + 8) : 1.f};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = f.col + 8 * j;
+      if (CLIP && c >= N) continue;
+      const float sc[2] = {s2[c], s2[c + 1]}, bb[2] = {bf(b2[c]), bf(b2[c + 1])};
+      const float g[2] = {bf(gamma[c]), bf(gamma[c + 1])};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (!in[r]) continue;
+        float y[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          y[e] = g[e] * __fadd_rn(__fmul_rn(__fmul_rn((float)d[4 * j + 2 * r + e], hs[r]), sc[e]), bb[e]);
+        const size_t o = (size_t)(f.row + 8 * r) * N + c;
         *reinterpret_cast<uint32_t*>(&out[o]) = pack_bf16(bf(res[o]) + y[0], bf(res[o + 1]) + y[1]);
       }
     }
   }
-}
+};
+
+FFN_PASS_KERNEL(ln_ffn_int8_upmax_kernel, S8, UpMaxEpilogue)
+FFN_PASS_KERNEL(ln_ffn_int8_upq_kernel, S8, UpQuantEpilogue)
+FFN_PASS_KERNEL(ln_ffn_int8_down_kernel, S8, DownEpilogue)
 
 template <int NT>
-cudaError_t launch(const void* x, const void* res, const void* ln_w, const void* ln_b, const void* w1q,
-                   const void* s1, const void* b1, const void* w2q, const void* s2, const void* b2,
-                   const void* gamma, void* out, int M, int I, float eps, cudaStream_t stream) {
-  const size_t smem = Smem<NT>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(ln_ffn_int8_kernel<NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((M + BM - 1) / BM);
-  ln_ffn_int8_kernel<NT><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)x, (const bf16*)res, (const bf16*)ln_w, (const bf16*)ln_b, (const int8_t*)w1q,
-      (const float*)s1, (const bf16*)b1, (const int8_t*)w2q, (const float*)s2, (const bf16*)b2,
-      (const bf16*)gamma, (bf16*)out, M, I, eps);
-  return cudaGetLastError();
+int rows_pass(const void* x, const void* ln_w, const void* ln_b, void* xq, void* xs, void* hmax, int M, float eps,
+              cudaStream_t s) {
+  const int grid = (M + ROWS_THREADS / 32 - 1) / (ROWS_THREADS / 32);
+  ln_ffn_int8_rows_kernel<NT><<<grid, ROWS_THREADS, 0, s>>>((const bf16*)x, (const bf16*)ln_w, (const bf16*)ln_b,
+                                                            (int8_t*)xq, (float*)xs, (unsigned*)hmax, M, eps);
+  return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// C must be a multiple of 64 up to 768 and I a multiple of 64; x, res and the
-// bf16 vectors contiguous bf16, W1q (I, C) and W2q (C, I) int8, s1 (I,) and
-// s2 (C,) f32.  Returns the CUDA error of the launch (0 on success).
-extern "C" int ln_ffn_int8(const void* x, const void* res, const void* ln_w, const void* ln_b,
-                           const void* w1q, const void* s1, const void* b1, const void* w2q,
-                           const void* s2, const void* b2, const void* gamma, void* out, int M, int C,
-                           int I, float eps, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+int rows_pass_any(int C, const void* x, const void* ln_w, const void* ln_b, void* xq, void* xs, void* hmax, int M,
+                  float eps, cudaStream_t s) {
   switch (C / 64) {
-#define CASE(NT)                                                                                  \
-  case NT:                                                                                        \
-    return (int)launch<NT>(x, res, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, out, M, I, eps, s);
+#define CASE(NT) \
+  case NT:       \
+    return rows_pass<NT>(x, ln_w, ln_b, xq, xs, hmax, M, eps, s);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6)
     CASE(7) CASE(8) CASE(9) CASE(10) CASE(11) CASE(12)
 #undef CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Passes, a bit each (1 rows, 2 up-max, 4 up-quantise, 8 down; the wrapper
+// runs all four, a timer one at a time).  C a multiple of 64 up to 768, I a
+// multiple of 64; x, res and the bf16 vectors contiguous bf16, W1q (I, C)
+// and W2q (C, I) contiguous int8, s1 (I,) and s2 (C,) f32; workspaces xq
+// (M, C) int8, xs (M,) f32, hmax (M,) 32-bit, hq (M, I) int8; g_* the
+// tensor-map geometries of xq, W1q, hq and W2q
+// (ops/fused_convnext.py::ffn_tile_maps).  Returns 0, or the first error of
+// the passes: a CUDA error or sm90::TENSOR_MAP_ERROR + the driver's CUresult.
+extern "C" int ln_ffn_int8(const void* x, const void* res, const void* ln_w, const void* ln_b, const void* w1q,
+                           const void* s1, const void* b1, const void* w2q, const void* s2, const void* b2,
+                           const void* gamma, void* out, void* xq, void* xs, void* hmax, void* hq, int M, int C,
+                           int I, float eps, const long long* g_xq, const long long* g_w1, const long long* g_hq,
+                           const long long* g_w2, int passes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = 0;
+  if (passes & 1) err = rows_pass_any(C, x, ln_w, ln_b, xq, xs, hmax, M, eps, s);
+  const UpArgs up{(const float*)xs, (const float*)s1, (const bf16*)b1, (unsigned*)hmax, M, I};
+  constexpr int UP_BN = ffn_sm90::UP_BN;
+  if (err == 0 && (passes & 6) && g_w1[11] != UP_BN) err = (int)cudaErrorInvalidValue;
+  if (err == 0 && (passes & 2))
+    err = ffn_sm90::launch_pass<S8, UP_BN>(ln_ffn_int8_upmax_kernel<UP_BN>, xq, g_xq, w1q, g_w1, nullptr, nullptr,
+                                           {M, I, C}, UpMaxEpilogue{up}, s);
+  if (err == 0 && (passes & 4))
+    err = ffn_sm90::launch_pass<S8, UP_BN>(ln_ffn_int8_upq_kernel<UP_BN>, xq, g_xq, w1q, g_w1, hq, g_hq, {M, I, C},
+                                           UpQuantEpilogue{up}, s);
+  if (err == 0 && (passes & 8)) {
+    const DownEpilogue epi{(const unsigned*)hmax, (const float*)s2, (const bf16*)b2, (const bf16*)gamma,
+                           (const bf16*)res, (bf16*)out, M, C};
+    err = ffn_sm90::with_block_n(g_w2[11], [&](auto bn) {
+      constexpr int BN = decltype(bn)::value;
+      return ffn_sm90::launch_pass<S8, BN>(ln_ffn_int8_down_kernel<BN>, hq, g_hq, w2q, g_w2, nullptr, nullptr,
+                                           {M, C, I}, epi, s);
+    });
+  }
+  return err;
 }

@@ -42,7 +42,7 @@ __global__ void __launch_bounds__(THREADS, HD <= 64 ? 2 : 1)
   using SM = Smem<HD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_base(smem_raw);
-  const Ring ring{base + SM::BAR, base + SM::BAR + 8 * STAGES};
+  const Ring<STAGES> ring{base + SM::BAR, base + SM::BAR + 8 * STAGES};
   const uint32_t q_bar = base + SM::BAR + 16 * STAGES;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -144,7 +144,7 @@ int launch(const void* qkv, const void* lengths, void* out, int B, int T, int H,
 // qkv (B, T, 3 H HD) and out (B, T, H HD) contiguous bf16, lengths (B,) int32,
 // HD in {16, 32, 64, 128}; geom the tensor-map geometry of qkv
 // (ops/flash_attention.py::tile_map).  Returns 0 on success, else the CUDA
-// error of the launch or attn::TENSOR_MAP_ERROR + the driver's CUresult.
+// error of the launch or sm90::TENSOR_MAP_ERROR + the driver's CUresult.
 extern "C" int pflash_bf16(const void* qkv, const void* lengths, void* out, int B, int T, int H, int HD,
                            const long long* geom, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

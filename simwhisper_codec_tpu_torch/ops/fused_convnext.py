@@ -4,9 +4,12 @@ Counterpart of ``simwhisper_codec_tpu/ops/fused_convnext.py`` (``fused_ln_ffn``
 and ``fused_convnext_ffn`` :38-139, ``fused_convnext_block_dw`` :142-258,
 ``fused_ln_ffn_int8`` :261-357).  The kernels are ``csrc/ln_ffn.cu`` (bf16),
 ``csrc/convnext_dw.cu`` (the whole ConvNeXt block, depthwise conv included)
-and ``csrc/ln_ffn_int8.cu`` (int8); see their headers for the designs.  Each wrapper launches its kernel for a
-CUDA tensor and runs the plain version for a CPU tensor; there is no
-fallback between the two.
+and ``csrc/ln_ffn_int8.cu`` (int8); see their headers for the designs.  B2
+and B3 run as passes (a row kernel, then up- and down-projection GEMMs on
+``csrc/ffn_sm90.cuh``) through workspaces allocated here, with the TMA
+geometry of every GEMM operand from ``operand_map``.  Each wrapper launches
+its kernel for a CUDA tensor and runs the plain version for a CPU tensor;
+there is no fallback between the two.
 
 All (M, C) rows; weights in ``nn.Linear`` layout: W1 (I, C), W2 (C, I).
 As in the JAX wrappers, every operand is cast to x.dtype first (the int8
@@ -16,12 +19,15 @@ is the tanh approximation.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
 from torch.nn import functional as F
 
 from simwhisper_codec_tpu_torch.ops import _cuda
+from simwhisper_codec_tpu_torch.ops.flash_attention import TileMap
 
 
 def _gelu_tanh(h: torch.Tensor) -> torch.Tensor:
@@ -96,28 +102,157 @@ def _vec(t: torch.Tensor, n: int, dtype, device) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
+# ---- the passes of B2 and B3 (csrc/ffn_sm90.cuh) -----------------------------
+
+ROW_TILE = 128  # rows of a block tile, = rows of an activation operand's TMA box
+K_SLICE_BYTES = 128  # one K slice of an operand's box: 64 bf16 or 128 int8, the 128-byte swizzle span
+BLOCK_NS = (256, 192, 128)  # the kernels' block widths, widest first
+# The up passes' epilogues (tanh-GELU, and for int8 the quantisation) take
+# longer than their main loops, so they run 128-wide blocks, two an SM, and
+# one block's epilogue overlaps the other's products.
+UP_BLOCK_N = 128
+H100_SMS = 132
+MAX_ROWS = 65535 * ROW_TILE  # row tiles are the grid's y dimension
+# bit of each pass in the C entry points' ``passes`` argument
+BF16_PASSES = {"rows": 1, "up": 2, "down": 4}
+INT8_PASSES = {"rows": 1, "up_max": 2, "up_quant": 4, "down": 8}
+
+
+def operand_map(x: torch.Tensor, box_rows: int) -> TileMap:
+    """The 2-D tensor map (K, rows) of a row-major (rows, K) GEMM operand:
+    boxes of ``box_rows`` rows by 128 bytes of K, swizzled 128 B; rows past
+    the end and K past the row read as zeros.  Raises ValueError where the
+    TMA cannot take the layout (a K dim that is not contiguous, a base not
+    16-byte aligned, a row stride not a multiple of 16 bytes)."""
+    _cuda.require(x.dim() == 2 and x.stride(-1) == 1, "a GEMM operand must be (rows, K) with K contiguous")
+    _cuda.require(x.dtype in (torch.bfloat16, torch.int8), f"GEMM operands are bfloat16 or int8, got {x.dtype}")
+    item = x.element_size()
+    row_bytes = x.stride(0) * item
+    _cuda.require(row_bytes % 16 == 0 and 0 < row_bytes < 1 << 40, f"row stride {row_bytes} B must be a multiple of 16")
+    _cuda.require(x.data_ptr() % 16 == 0, "the operand's base must be 16-byte aligned")
+    _cuda.require(1 <= box_rows <= 256, f"box of {box_rows} rows")
+    rows, k = x.shape
+    return TileMap((k, rows), (row_bytes,), (K_SLICE_BYTES // item, box_rows), K_SLICE_BYTES)
+
+
+def block_n(m: int, n: int, sms: int = H100_SMS) -> int:
+    """The block width of the down pass over an (m, n) output: the one whose
+    tiles finish in the least time, counted as waves over the SMs times the
+    width (a tile's time grows with its width); ties go to the wider block."""
+    row_tiles = -(-m // ROW_TILE)
+    return min(BLOCK_NS, key=lambda bn: -(-row_tiles * -(-n // bn) // sms) * bn)
+
+
+def ffn_workspaces(m: int, c: int, inter: int, int8: bool, device) -> dict:
+    """The intermediates of the passes, uninitialised: bf16 xn (M, C) and h (M, I);
+    int8 xq (M, C), xs (M,) f32, hmax (M,) 32-bit, hq (M, I)."""
+    empty = lambda *shape, dtype: torch.empty(shape, dtype=dtype, device=device)
+    if not int8:
+        return {"xn": empty(m, c, dtype=torch.bfloat16), "h": empty(m, inter, dtype=torch.bfloat16)}
+    return {"xq": empty(m, c, dtype=torch.int8), "xs": empty(m, dtype=torch.float32),
+            "hmax": empty(m, dtype=torch.int32), "hq": empty(m, inter, dtype=torch.int8)}
+
+
+def ffn_tile_maps(a_up: torch.Tensor, w1: torch.Tensor, a_down: torch.Tensor, w2: torch.Tensor,
+                  sms: int = H100_SMS, block_ns: Optional[tuple] = None) -> list:
+    """Tensor maps of the up pass (A = LN(x) rows (M, C), B = W1 (I, C)) and the
+    down pass (A = h (M, I), B = W2 (C, I)), in the C entry points' order.
+    ``block_ns`` = (up, down) overrides the block widths (for ablations)."""
+    m, c = a_up.shape[0], w2.shape[0]
+    up_bn, down_bn = block_ns or (UP_BLOCK_N, block_n(m, c, sms))
+    return [operand_map(a_up, ROW_TILE), operand_map(w1, up_bn), operand_map(a_down, ROW_TILE),
+            operand_map(w2, down_bn)]
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _ln_ffn_bf16_args(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, block_ns=None):
+    """Check the operands and build the argument list of ``ln_ffn_bf16`` (all but ``passes``)."""
+    _check_rows(x, residual)
+    m, c = x.shape
+    inter = w1.shape[0]
+    _cuda.require(m <= MAX_ROWS, f"M={m} rows exceed the grid's {MAX_ROWS}")
+    _cuda.require(inter % 32 == 0 and w1.shape == (inter, c) and w2.shape == (c, inter),
+                  f"W1 must be (I, C) and W2 (C, I) with I a multiple of 32, got {tuple(w1.shape)}, {tuple(w2.shape)}")
+    dev, dt = x.device, x.dtype
+    w1c, w2c = w1.to(dt).contiguous(), w2.to(dt).contiguous()
+    ws = ffn_workspaces(m, c, inter, False, dev)
+    maps = ffn_tile_maps(ws["xn"], w1c, ws["h"], w2c, _sms(dev), block_ns)
+    tensors = [x, residual, _vec(ln_w, c, dt, dev), _vec(ln_b, c, dt, dev), w1c, _vec(b1, inter, dt, dev), w2c,
+               _vec(b2, c, dt, dev), _gamma(gamma, x).contiguous(), torch.empty_like(x), ws["xn"], ws["h"]]
+    args = [*map(_cuda.ptr, tensors), _cuda.c_int(m), _cuda.c_int(c), _cuda.c_int(inter), _cuda.c_float(eps),
+            *(g.as_c() for g in maps)]
+    return args, tensors, f"{c}x{inter}"
+
+
+def _ln_ffn_int8_args(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps, block_ns=None):
+    """Check the operands and build the argument list of ``ln_ffn_int8`` (all but ``passes``)."""
+    _check_rows(x, residual)
+    m, c = x.shape
+    inter = w1q.shape[0]
+    _cuda.require(m <= MAX_ROWS, f"M={m} rows exceed the grid's {MAX_ROWS}")
+    _cuda.require(inter % 64 == 0 and w1q.shape == (inter, c) and w2q.shape == (c, inter)
+                  and w1q.dtype == torch.int8 and w2q.dtype == torch.int8
+                  and w1q.is_contiguous() and w2q.is_contiguous(),
+                  "W1q must be contiguous int8 (I, C) and W2q (C, I), I a multiple of 64")
+    dev, dt = x.device, x.dtype
+    ws = ffn_workspaces(m, c, inter, True, dev)
+    maps = ffn_tile_maps(ws["xq"], w1q, ws["hq"], w2q, _sms(dev), block_ns)
+    tensors = [x, residual, _vec(ln_w, c, dt, dev), _vec(ln_b, c, dt, dev), w1q, _vec(s1, inter, torch.float32, dev),
+               _vec(b1, inter, dt, dev), w2q, _vec(s2, c, torch.float32, dev), _vec(b2, c, dt, dev),
+               _gamma(gamma, x).contiguous(), torch.empty_like(x), ws["xq"], ws["xs"], ws["hmax"], ws["hq"]]
+    args = [*map(_cuda.ptr, tensors), _cuda.c_int(m), _cuda.c_int(c), _cuda.c_int(inter), _cuda.c_float(eps),
+            *(g.as_c() for g in maps)]
+    return args, tensors, f"{c}x{inter}"
+
+
+_FFN = {  # kind -> (library, C entry point, argument builder, passes, index of ``out`` among the tensors)
+    "bf16": ("ln_ffn", "ln_ffn_bf16", _ln_ffn_bf16_args, BF16_PASSES, 9),
+    "int8": ("ln_ffn_int8", "ln_ffn_int8", _ln_ffn_int8_args, INT8_PASSES, 11),
+}
+
+
+def _ffn_launch(kind: str, *operands):
+    lib, fn, build, passes, out_index = _FFN[kind]
+    args, tensors, shape = build(*operands)
+    x = tensors[0]
+    _cuda.launch(lib, fn, f"{fn}:{shape}", *args, _cuda.c_int(sum(passes.values())), _cuda.stream(x.device))
+    return tensors[out_index]
+
+
+def ffn_pass_timers(kind: str, *operands, block_ns: Optional[tuple] = None) -> dict:
+    """Pass name -> a callable that launches that pass alone on ``operands``
+    (the wrapper's arguments; CUDA tensors), for timing each pass.  The
+    passes share one set of workspaces, which the callables keep alive, so
+    run them in order once before timing one alone.  These launches bypass
+    the wrapper and are not counted.  ``block_ns`` as in ``ffn_tile_maps``."""
+    lib, fn, build, passes, _ = _FFN[kind]
+    args, tensors, _ = build(*operands, block_ns=block_ns)
+    stream = _cuda.stream(tensors[0].device)
+    entry = getattr(_cuda.library(lib), fn)
+    entry.restype = ctypes.c_int
+    entry.argtypes = [type(a) for a in args] + [ctypes.c_int, ctypes.c_void_p]
+
+    def run_pass(bit, tensors=tensors):  # the default keeps the workspaces alive with the callables
+        err = entry(*args, bit, stream)
+        if err != 0:
+            raise RuntimeError(f"{fn} pass {bit} failed: CUDA error {err}")
+
+    return {name: functools.partial(run_pass, bit) for name, bit in passes.items()}
+
+
 def fused_ln_ffn(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma=None, eps=1e-6):
     """Fused residual + gamma * (GELU_tanh(LN(x) W1^T + b1) W2^T + b2) over (M, C) rows.
 
     gamma=None is the transformer FFN (gamma = 1, residual = x); the Vocos
     ConvNeXt chain passes its layer scale and the block input as residual.
+    A CUDA tensor runs ``csrc/ln_ffn.cu``'s three passes (one launch count).
     """
     if x.device.type == "cpu":
         return fused_ln_ffn_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
-    _check_rows(x, residual)
-    m, c = x.shape
-    inter = w1.shape[0]
-    _cuda.require(inter % 32 == 0 and w1.shape == (inter, c) and w2.shape == (c, inter),
-                  f"W1 must be (I, C) and W2 (C, I) with I a multiple of 32, got {tuple(w1.shape)}, {tuple(w2.shape)}")
-    dev, dt = x.device, x.dtype
-    w1c, w2c = w1.to(dt).contiguous(), w2.to(dt).contiguous()
-    args = [_vec(ln_w, c, dt, dev), _vec(ln_b, c, dt, dev), w1c, _vec(b1, inter, dt, dev), w2c,
-            _vec(b2, c, dt, dev), _gamma(gamma, x).contiguous()]
-    out = torch.empty_like(x)
-    _cuda.launch("ln_ffn", "ln_ffn_bf16", f"ln_ffn_bf16:{c}x{inter}", _cuda.ptr(x), _cuda.ptr(residual),
-                 *map(_cuda.ptr, args), _cuda.ptr(out), _cuda.c_int(m), _cuda.c_int(c), _cuda.c_int(inter),
-                 _cuda.c_float(eps), _cuda.stream(dev))
-    return out
+    return _ffn_launch("bf16", x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
 
 
 def fused_convnext_ffn(xdw: torch.Tensor, residual: torch.Tensor, block, eps: float = 1e-6) -> torch.Tensor:
@@ -129,25 +264,11 @@ def fused_convnext_ffn(xdw: torch.Tensor, residual: torch.Tensor, block, eps: fl
 
 def fused_ln_ffn_int8(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma=None, eps=1e-6):
     """int8 ``fused_ln_ffn`` with pre-quantised weights (ops/quant.py) and
-    per-row dynamic activation quantisation inside the kernel."""
+    per-row dynamic activation quantisation inside the kernel.  A CUDA
+    tensor runs ``csrc/ln_ffn_int8.cu``'s four passes (one launch count)."""
     if x.device.type == "cpu":
         return fused_ln_ffn_int8_plain(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps)
-    _check_rows(x, residual)
-    m, c = x.shape
-    inter = w1q.shape[0]
-    _cuda.require(inter % 64 == 0 and w1q.shape == (inter, c) and w2q.shape == (c, inter)
-                  and w1q.dtype == torch.int8 and w2q.dtype == torch.int8
-                  and w1q.is_contiguous() and w2q.is_contiguous(),
-                  "W1q must be contiguous int8 (I, C) and W2q (C, I), I a multiple of 64")
-    dev, dt = x.device, x.dtype
-    args = [_vec(ln_w, c, dt, dev), _vec(ln_b, c, dt, dev), w1q, _vec(s1, inter, torch.float32, dev),
-            _vec(b1, inter, dt, dev), w2q, _vec(s2, c, torch.float32, dev), _vec(b2, c, dt, dev),
-            _gamma(gamma, x).contiguous()]
-    out = torch.empty_like(x)
-    _cuda.launch("ln_ffn_int8", "ln_ffn_int8", f"ln_ffn_int8:{c}x{inter}", _cuda.ptr(x), _cuda.ptr(residual),
-                 *map(_cuda.ptr, args), _cuda.ptr(out), _cuda.c_int(m), _cuda.c_int(c), _cuda.c_int(inter),
-                 _cuda.c_float(eps), _cuda.stream(dev))
-    return out
+    return _ffn_launch("int8", x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps)
 
 
 def _dw_taps(block, dt):

@@ -31,11 +31,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 # kernel-name fragments of each reported group (the hand kernels by their
-# device-function names, "::" included so that B5's fragment does not match B1's)
+# device-function names, every pass of B2 and B3 included, "::" included so
+# that B5's fragment does not match B1's).  No hand kernel's name contains
+# "gemm", so the library group never counts one of them a second time.
 GROUPS = {
     "B1 pflash": ("::pflash_sm90_kernel<",),
-    "B2 ln_ffn": ("::ln_ffn_kernel<",),
-    "B3 ln_ffn_int8": ("::ln_ffn_int8_kernel<",),
+    "B2 ln_ffn": ("::ln_ffn_bf16_rows_kernel<", "::ln_ffn_bf16_up_kernel<", "::ln_ffn_bf16_down_kernel<"),
+    "B3 ln_ffn_int8": ("::ln_ffn_int8_rows_kernel<", "::ln_ffn_int8_upmax_kernel<", "::ln_ffn_int8_upq_kernel<",
+                       "::ln_ffn_int8_down_kernel<"),
     "B4 convnext_dw": ("::convnext_dw_kernel<",),
     "B5 flash": ("::flash_sm90_kernel<",),
     "host-to-device copies": ("Memcpy HtoD",),
