@@ -8,7 +8,8 @@ Phases, any failure exits non-zero:
      shapes (batch 8, bf16) and time kernel, plain version and, where one
      exists, a single PyTorch library call computing the same function (for
      B2 and B3, which no single call computes, the chain of library calls
-     as ``library_chain_ms``, and each of their passes alone as ``pass_ms``);
+     as ``library_chain_ms``, and each pass of B2, B3 and B4 alone as
+     ``pass_ms``);
   3. run full-width random weights (config/SimWhisperCodec.yaml, fixed seed)
      through ``AudioCodec.encode`` + ``decode`` in parity, fast, fast-int8
      and fast with the flash attention core and the whole-block Vocos kernel
@@ -300,30 +301,60 @@ def kernel_phase(torch):
                                  "simwhisper_codec_tpu_torch/csrc/ln_ffn_int8.cu", iters=10,
                                  library_chain_ms=lambda: library_chain_int8(torch, *args)))
         rows[-1]["pass_ms"] = pass_times(torch, fc.ffn_pass_timers("int8", *args), rows[-1]["name"])
-    # B4: the whole Vocos ConvNeXt block at the Vocos shape, the virtual
-    # right edge inside the last tile; same bf16 tolerance as B2 (the f32
-    # depthwise sum and LN agree to f32 rounding, the rest is B2's chain)
+    rows.append(check_convnext_dw(torch, randn, fc))
+    check_other_shapes(torch, randn, fa, fc, quantize_weight)
+    return rows
+
+
+def check_convnext_dw(torch, randn, fc):
+    """B4: the whole Vocos ConvNeXt block at the Vocos shape, the virtual
+    right edge inside the last tile; same bf16 tolerance as B2 (the f32
+    depthwise sum and LN agree to f32 rounding, the rest is B2's chain).
+    ``two_step_ms`` times plain depthwise shift-FMAs + B2 (the fused-vocos
+    path), ``pass_ms`` each of B4's passes alone (rows / up / down), and
+    ``bf16_weights_ms`` the call on a copy of the block whose weights are
+    already bf16 (the codec keeps them f32, so each call casts W1 and W2)."""
+    import copy
+
+    from simwhisper_codec_tpu_torch.ops.conv import depthwise_conv1d_shifts
+
+    dev, bf = randn(1).device, torch.bfloat16
     t4, c, inter = 3000, 512, 4096
     x4 = randn(8, t4, c)
     block = random_block(torch, randn, c, inter)
     fv = 2875
+    block_bf16 = copy.deepcopy(block).to(bf)
 
-    def two_step():  # plain depthwise shift-FMAs, then B2: the fused-vocos path
-        from simwhisper_codec_tpu_torch.ops.conv import depthwise_conv1d_shifts
-
+    def two_step():
         mask = (torch.arange(t4, device=dev) < fv).to(bf)[None, :, None]
         xdw = depthwise_conv1d_shifts(x4 * mask, block.dwconv.weight[:, 0, :].t(), block.dwconv.bias, padding=3)
         return fc.fused_convnext_ffn(xdw.reshape(-1, c), x4.reshape(-1, c), block)
 
     m = 8 * t4
-    rows.append(check_kernel(torch, f"convnext_dw:{c}x{inter}", fc.fused_convnext_block_dw,
-                             fc.fused_convnext_block_dw_plain, (x4, block, fv), 1e-2, 1.6e-2,
-                             4.0 * m * c * inter + 14.0 * m * c, H100_BF16_FLOPS,
-                             2 * m * c * 2 + 2 * c * inter * 2 + (7 * c + 5 * c + inter) * 2,
-                             "simwhisper_codec_tpu/ops/fused_convnext.py:195",
-                             "simwhisper_codec_tpu_torch/csrc/convnext_dw.cu", iters=10, two_step_ms=two_step))
-    check_other_shapes(torch, randn, fa, fc, quantize_weight)
-    return rows
+    row = check_kernel(torch, f"convnext_dw:{c}x{inter}", fc.fused_convnext_block_dw,
+                       fc.fused_convnext_block_dw_plain, (x4, block, fv), 1e-2, 1.6e-2,
+                       4.0 * m * c * inter + 14.0 * m * c, H100_BF16_FLOPS,
+                       2 * m * c * 2 + 2 * c * inter * 2 + (7 * c + 5 * c + inter) * 2,
+                       "simwhisper_codec_tpu/ops/fused_convnext.py:195",
+                       "simwhisper_codec_tpu_torch/csrc/convnext_dw.cu", iters=10, two_step_ms=two_step,
+                       bf16_weights_ms=lambda: fc.fused_convnext_block_dw(x4, block_bf16, fv))
+    row["pass_ms"] = pass_times(torch, fc.ffn_pass_timers("dw", x4, block, fv), row["name"])
+    return row
+
+
+def check_convnext_dw_shapes(torch, randn, fc):
+    """B4 against its plain version where the row kernel's window is at its
+    edges: ragged T = 203 (six 32-row tiles and 11) with the edge at 150
+    inside a tile, no valid row (frame_valid = 0: xdw is the bias), batch
+    seams at B = 3 (a halo must not read the neighbouring item), T shorter
+    than the 7-row window (1 and 5), and the widest C the wrapper takes."""
+    cases = ((2, 203, 64, 128, (None, 150)), (2, 203, 256, 192, (None, 150)), (3, 203, 256, 192, (None, 150, 0)),
+             (3, 1, 256, 192, (None, 0)), (3, 5, 256, 192, (None, 3)), (2, 203, 768, 256, (None, 150)))
+    for b, t, c, inter, fvs in cases:
+        x, block = randn(b, t, c), random_block(torch, randn, c, inter)
+        for fv in fvs:
+            compare(torch, f"convnext_dw:{c}x{inter} B={b} T={t} frame_valid={fv}",
+                    fc.fused_convnext_block_dw(x, block, fv), fc.fused_convnext_block_dw_plain(x, block, fv), 1e-2)
 
 
 def check_other_shapes(torch, randn, fa, fc, quantize_weight):
@@ -338,11 +369,7 @@ def check_other_shapes(torch, randn, fa, fc, quantize_weight):
         agree(f"pflash_attention hd={hd}", fa.fused_qkv_attention(*args), fa.fused_qkv_attention_plain(*args), 1e-2)
         args = (*head_views(qkv, 4), lengths)
         agree(f"flash_attention hd={hd}", fa.flash_attention(*args), fa.flash_attention_plain(*args), 1e-2)
-    for c, inter in ((64, 128), (256, 192)):  # ragged T = 203, the edge at 150 inside a tile
-        x, block = randn(2, 203, c), random_block(torch, randn, c, inter)
-        for fv in (None, 150):
-            agree(f"convnext_dw:{c}x{inter} frame_valid={fv}", fc.fused_convnext_block_dw(x, block, fv),
-                  fc.fused_convnext_block_dw_plain(x, block, fv), 1e-2)
+    check_convnext_dw_shapes(torch, randn, fc)
     # ragged M (1 row; 127, one short of a block tile; 301), narrow C and I
     for m in (1, 127, 301):
         for c, inter in ((64, 128), (256, 192)):

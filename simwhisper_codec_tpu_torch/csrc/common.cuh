@@ -1,16 +1,6 @@
-// Shared device helpers of the codec's Hopper kernels (sm_90a).
-//
-// The warp-level tensor-core product mma.sync m16n8k16 bf16 x bf16 -> f32
-// serves B4's chain (ln_ffn_chain.cuh); the other kernels run wgmma
-// (sm90.cuh).  Fragment layout (groupID g = lane / 4, t = lane % 4):
-//   A (16 x K, row-major): reg0 (row g, k 0..), reg1 (row g+8, k 0..),
-//                          reg2 (row g, k + K/2), reg3 (row g+8, k + K/2)
-//   B (K x 8, column-major, i.e. K contiguous for each output column n = g):
-//                          reg0 (k 0..), reg1 (k + K/2)
-//   C (16 x 8): c0, c1 at (row g, cols 2t, 2t+1); c2, c3 at (row g+8, same cols)
-// where "k 0.." means elements 2t, 2t+1.  Operands
-// are read from shared memory rows whose stride is padded by 16 bytes, so the
-// 8 groups of a warp fall on distinct banks.
+// Shared device helpers of the codec's Hopper kernels (sm_90a): bf16
+// conversions, the tanh-GELU, warp reductions and the warp LayerNorm.  The
+// tensor-core products are wgmma, in sm90.cuh and its users.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,18 +11,6 @@ typedef __nv_bfloat16 bf16;
 
 // the finite float32 minimum the JAX kernels mask with (never -inf there)
 #define NEG_BIG (-3.4028234663852886e38f)
-
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // two floats -> packed bf16 pair, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -1,5 +1,6 @@
-// The Hopper GEMM core of the LN-FFN kernels, csrc/ln_ffn.cu (B2) and
-// csrc/ln_ffn_int8.cu (B3): one pass D = A B^T over (M, K) rows A and an
+// The Hopper GEMM core of the LN-FFN kernels, csrc/ln_ffn.cu (B2),
+// csrc/ln_ffn_int8.cu (B3) and csrc/convnext_dw.cu (B4; B2's bf16 passes,
+// csrc/ffn_bf16.cuh): one pass D = A B^T over (M, K) rows A and an
 // (N, K) weight B in nn.Linear layout, with an epilogue functor that works
 // on the accumulator fragment in registers.
 //

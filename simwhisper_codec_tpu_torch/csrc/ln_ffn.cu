@@ -19,11 +19,13 @@
 //   2. ln_ffn_bf16_up_kernel: h = bf16(GELU(xn W1^T + b1)) -> workspace (M, I);
 //   3. ln_ffn_bf16_down_kernel: out = bf16(res + gamma (h W2^T + b2)).
 // The rounding points are the plain version's: xn and h to bf16, out once.
-#include "ffn_sm90.cuh"
+#include "ffn_bf16.cuh"
 
 namespace {
 
-using ffn_sm90::Bf16;
+using ffn_bf16::Bf16;
+using ffn_bf16::DownEpilogue;
+using ffn_bf16::UpEpilogue;
 
 constexpr int ROWS_THREADS = 256;  // 8 warps, one row each
 
@@ -39,53 +41,6 @@ __global__ void __launch_bounds__(ROWS_THREADS) ln_ffn_bf16_rows_kernel(
 #pragma unroll
   for (int i = 0; i < C / 32; ++i) xn[(size_t)row * C + lane + 32 * i] = __float2bfloat16(v[i]);
 }
-
-// h = bf16(GELU(acc + b1)), (M, N = I), staged in shared memory for one TMA
-// store of the tile (columns past N are computed on zeros and not stored)
-struct UpEpilogue {
-  static constexpr int STAGED_ITEM = 2;
-  const bf16* b1;
-  int N;
-  FFN_EPILOGUE_APPLY(float)
-  template <int BN, bool CLIP>
-  __device__ __forceinline__ void body(const float (&d)[BN / 2], const ffn_sm90::Frag& f) const {
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int c = f.col + 8 * j;  // N is even: c + 1 < N with c
-      const float bb0 = !CLIP || c < N ? bf(b1[c]) : 0.f, bb1 = !CLIP || c < N ? bf(b1[c + 1]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        ffn_sm90::st_shared(f.smem + ffn_sm90::swizzle128(f.lrow + 8 * r, 2 * (f.lcol + 8 * j), ffn_sm90::BM),
-                            pack_bf16(gelu_tanh(d[4 * j + 2 * r] + bb0), gelu_tanh(d[4 * j + 2 * r + 1] + bb1)));
-    }
-  }
-};
-
-// out = bf16(res + gamma (acc + b2)), (M, N = C)
-struct DownEpilogue {
-  static constexpr int STAGED_ITEM = 0;
-  const bf16 *b2, *gamma, *res;
-  bf16* out;
-  int M, N;
-  FFN_EPILOGUE_APPLY(float)
-  template <int BN, bool CLIP>
-  __device__ __forceinline__ void body(const float (&d)[BN / 2], const ffn_sm90::Frag& f) const {
-    const bool in[2] = {f.row < M, f.row + 8 < M};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int c = f.col + 8 * j;
-      if (CLIP && c >= N) continue;
-      const float g0 = bf(gamma[c]), g1 = bf(gamma[c + 1]), bb0 = bf(b2[c]), bb1 = bf(b2[c + 1]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (!in[r]) continue;
-        const size_t o = (size_t)(f.row + 8 * r) * N + c;
-        *reinterpret_cast<uint32_t*>(&out[o]) = pack_bf16(bf(res[o]) + g0 * (d[4 * j + 2 * r] + bb0),
-                                                          bf(res[o + 1]) + g1 * (d[4 * j + 2 * r + 1] + bb1));
-      }
-    }
-  }
-};
 
 FFN_PASS_KERNEL(ln_ffn_bf16_up_kernel, Bf16, UpEpilogue)
 FFN_PASS_KERNEL(ln_ffn_bf16_down_kernel, Bf16, DownEpilogue)
@@ -128,18 +83,9 @@ extern "C" int ln_ffn_bf16(const void* x, const void* res, const void* ln_w, con
   cudaStream_t s = (cudaStream_t)stream;
   int err = 0;
   if (passes & 1) err = rows_pass_any(C, x, ln_w, ln_b, xn, M, eps, s);
-  if (err == 0 && (passes & 2))
-    err = g_w1[11] != ffn_sm90::UP_BN
-              ? (int)cudaErrorInvalidValue
-              : ffn_sm90::launch_pass<Bf16, ffn_sm90::UP_BN>(ln_ffn_bf16_up_kernel<ffn_sm90::UP_BN>, xn, g_xn, w1,
-                                                             g_w1, h, g_h, {M, I, C}, UpEpilogue{(const bf16*)b1, I}, s);
-  if (err == 0 && (passes & 4)) {
-    const DownEpilogue epi{(const bf16*)b2, (const bf16*)gamma, (const bf16*)res, (bf16*)out, M, C};
-    err = ffn_sm90::with_block_n(g_w2[11], [&](auto bn) {
-      constexpr int BN = decltype(bn)::value;
-      return ffn_sm90::launch_pass<Bf16, BN>(ln_ffn_bf16_down_kernel<BN>, h, g_h, w2, g_w2, nullptr, nullptr,
-                                             {M, C, I}, epi, s);
-    });
-  }
+  if (err == 0)
+    err = ffn_bf16::up_down_passes(
+        ln_ffn_bf16_up_kernel<ffn_sm90::UP_BN>, [](auto bn) { return ln_ffn_bf16_down_kernel<decltype(bn)::value>; },
+        xn, w1, b1, h, w2, b2, gamma, res, out, M, C, I, g_xn, g_w1, g_h, g_w2, passes, s);
   return err;
 }

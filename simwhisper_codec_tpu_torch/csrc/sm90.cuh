@@ -1,6 +1,6 @@
 // Hopper (sm_90a) primitives shared by the TMA + wgmma kernels: the
 // attention machinery of csrc/attn_sm90.cuh (B1, B5) and the GEMM core of
-// csrc/ffn_sm90.cuh (B2, B3).
+// csrc/ffn_sm90.cuh (B2, B3, B4).
 //
 //   * mbarriers and a STAGES-deep ring of shared-memory buffers, each with a
 //     "full" barrier (completed by the TMA's transaction bytes) and an

@@ -4,12 +4,13 @@ Counterpart of ``simwhisper_codec_tpu/ops/fused_convnext.py`` (``fused_ln_ffn``
 and ``fused_convnext_ffn`` :38-139, ``fused_convnext_block_dw`` :142-258,
 ``fused_ln_ffn_int8`` :261-357).  The kernels are ``csrc/ln_ffn.cu`` (bf16),
 ``csrc/convnext_dw.cu`` (the whole ConvNeXt block, depthwise conv included)
-and ``csrc/ln_ffn_int8.cu`` (int8); see their headers for the designs.  B2
-and B3 run as passes (a row kernel, then up- and down-projection GEMMs on
-``csrc/ffn_sm90.cuh``) through workspaces allocated here, with the TMA
-geometry of every GEMM operand from ``operand_map``.  Each wrapper launches
-its kernel for a CUDA tensor and runs the plain version for a CPU tensor;
-there is no fallback between the two.
+and ``csrc/ln_ffn_int8.cu`` (int8); see their headers for the designs.  All
+three run as passes (a row kernel, then up- and down-projection GEMMs on
+``csrc/ffn_sm90.cuh``; B4's row kernel forms the masked depthwise conv
+before the LayerNorm, then runs B2's passes) through workspaces allocated
+here, with the TMA geometry of every GEMM operand from ``operand_map``.
+Each wrapper launches its kernel for a CUDA tensor and runs the plain
+version for a CPU tensor; there is no fallback between the two.
 
 All (M, C) rows; weights in ``nn.Linear`` layout: W1 (I, C), W2 (C, I).
 As in the JAX wrappers, every operand is cast to x.dtype first (the int8
@@ -102,7 +103,7 @@ def _vec(t: torch.Tensor, n: int, dtype, device) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
-# ---- the passes of B2 and B3 (csrc/ffn_sm90.cuh) -----------------------------
+# ---- the passes of B2, B3 and B4 (csrc/ffn_sm90.cuh) ------------------------
 
 ROW_TILE = 128  # rows of a block tile, = rows of an activation operand's TMA box
 K_SLICE_BYTES = 128  # one K slice of an operand's box: 64 bf16 or 128 int8, the 128-byte swizzle span
@@ -165,6 +166,10 @@ def ffn_tile_maps(a_up: torch.Tensor, w1: torch.Tensor, a_down: torch.Tensor, w2
 
 
 def _sms(device) -> int:
+    """The SMs the down pass's block width is balanced over: the CUDA
+    device's, or the H100's where the geometry is planned off the card."""
+    if device.type != "cuda":
+        return H100_SMS
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -208,17 +213,52 @@ def _ln_ffn_int8_args(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, 
     return args, tensors, f"{c}x{inter}"
 
 
-_FFN = {  # kind -> (library, C entry point, argument builder, passes, index of ``out`` among the tensors)
-    "bf16": ("ln_ffn", "ln_ffn_bf16", _ln_ffn_bf16_args, BF16_PASSES, 9),
-    "int8": ("ln_ffn_int8", "ln_ffn_int8", _ln_ffn_int8_args, INT8_PASSES, 11),
+def _dw_taps(block, dt):
+    """Depthwise weight (C, 1, 7) -> (7, C) and bias, cast to the activation dtype."""
+    return block.dwconv.weight[:, 0, :].t().to(dt), block.dwconv.bias.to(dt)
+
+
+def _convnext_dw_args(x, block, frame_valid=None, eps=1e-6, block_ns=None):
+    """Check the operands and build the argument list of ``convnext_dw_bf16``
+    (all but ``passes``) for x (B, T, C) on any device (``meta`` plans it
+    with no storage): the rows pass writes xn over B*T rows, then B2's up
+    and down passes run on the workspaces."""
+    _cuda.require(x.dtype == torch.bfloat16, f"ConvNeXt kernel takes bfloat16, got {x.dtype}")
+    _cuda.require(x.dim() == 3, "x must be a (B, T, C) tensor")
+    x = x.contiguous()  # the first block's input is a transposed view of the embedding conv's output
+    b, t, c = x.shape
+    _cuda.require(c % 64 == 0 and 64 <= c <= 768, f"C={c} must be a multiple of 64 up to 768")
+    inter = block.pwconv1.weight.shape[0]
+    _cuda.require(inter % 32 == 0, f"I={inter} must be a multiple of 32")
+    _cuda.require(1 <= b * t <= MAX_ROWS, f"B*T={b * t} rows must be 1..{MAX_ROWS}")
+    fv = t if frame_valid is None else int(frame_valid)
+    _cuda.require(fv >= 0, f"frame_valid must be >= 0, got {fv}")
+    dev, dt = x.device, x.dtype
+    dw_w, dw_b = _dw_taps(block, dt)
+    w1, w2 = block.pwconv1.weight.to(dt).contiguous(), block.pwconv2.weight.to(dt).contiguous()
+    ws = ffn_workspaces(b * t, c, inter, False, dev)
+    maps = ffn_tile_maps(ws["xn"], w1, ws["h"], w2, _sms(dev), block_ns)
+    tensors = [x, dw_w.contiguous(), _vec(dw_b, c, dt, dev), _vec(block.norm.weight, c, dt, dev),
+               _vec(block.norm.bias, c, dt, dev), w1, _vec(block.pwconv1.bias, inter, dt, dev), w2,
+               _vec(block.pwconv2.bias, c, dt, dev), _vec(block.gamma, c, dt, dev), torch.empty_like(x),
+               ws["xn"], ws["h"]]
+    args = [*map(_cuda.ptr, tensors), *map(_cuda.c_int, (b, t, c, inter, min(fv, t))), _cuda.c_float(eps),
+            *(g.as_c() for g in maps)]
+    return args, tensors, f"{c}x{inter}"
+
+
+_FFN = {  # kind -> (library, C entry point, launch-count key, argument-list function, passes, index of ``out`` among the tensors)
+    "bf16": ("ln_ffn", "ln_ffn_bf16", "ln_ffn_bf16", _ln_ffn_bf16_args, BF16_PASSES, 9),
+    "int8": ("ln_ffn_int8", "ln_ffn_int8", "ln_ffn_int8", _ln_ffn_int8_args, INT8_PASSES, 11),
+    "dw": ("convnext_dw", "convnext_dw_bf16", "convnext_dw", _convnext_dw_args, BF16_PASSES, 10),
 }
 
 
 def _ffn_launch(kind: str, *operands):
-    lib, fn, build, passes, out_index = _FFN[kind]
+    lib, fn, key, build, passes, out_index = _FFN[kind]
     args, tensors, shape = build(*operands)
     x = tensors[0]
-    _cuda.launch(lib, fn, f"{fn}:{shape}", *args, _cuda.c_int(sum(passes.values())), _cuda.stream(x.device))
+    _cuda.launch(lib, fn, f"{key}:{shape}", *args, _cuda.c_int(sum(passes.values())), _cuda.stream(x.device))
     return tensors[out_index]
 
 
@@ -228,7 +268,7 @@ def ffn_pass_timers(kind: str, *operands, block_ns: Optional[tuple] = None) -> d
     passes share one set of workspaces, which the callables keep alive, so
     run them in order once before timing one alone.  These launches bypass
     the wrapper and are not counted.  ``block_ns`` as in ``ffn_tile_maps``."""
-    lib, fn, build, passes, _ = _FFN[kind]
+    lib, fn, _, build, passes, _ = _FFN[kind]
     args, tensors, _ = build(*operands, block_ns=block_ns)
     stream = _cuda.stream(tensors[0].device)
     entry = getattr(_cuda.library(lib), fn)
@@ -271,11 +311,6 @@ def fused_ln_ffn_int8(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma=N
     return _ffn_launch("int8", x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps)
 
 
-def _dw_taps(block, dt):
-    """Depthwise weight (C, 1, 7) -> (7, C) and bias, cast to the activation dtype."""
-    return block.dwconv.weight[:, 0, :].t().to(dt), block.dwconv.bias.to(dt)
-
-
 def fused_convnext_block_dw_plain(x: torch.Tensor, block, frame_valid=None, eps: float = 1e-6) -> torch.Tensor:
     """The B4 kernel's function step by step on x (B, T, C): rows outside
     [0, frame_valid) zeroed, depthwise k7 summed in f32 from the bias with
@@ -298,27 +333,9 @@ def fused_convnext_block_dw_plain(x: torch.Tensor, block, frame_valid=None, eps:
 def fused_convnext_block_dw(x: torch.Tensor, block, frame_valid=None, eps: float = 1e-6) -> torch.Tensor:
     """Whole ConvNeXt block of one Vocos layer (depthwise k7 conv with the
     ``frame_valid`` edge mask, LN, pwconv1, GELU, pwconv2, gamma, residual)
-    on x (B, T, C).  Any T; ``frame_valid=None`` means T."""
+    on x (B, T, C).  Any T; ``frame_valid=None`` means T.  A CUDA tensor
+    runs ``csrc/convnext_dw.cu``'s three passes (one launch count)."""
     if x.device.type == "cpu":
         return fused_convnext_block_dw_plain(x, block, frame_valid, eps)
     _cuda.require(x.device.type == "cuda", f"unsupported device {x.device}")
-    _cuda.require(x.dtype == torch.bfloat16, f"ConvNeXt kernel takes bfloat16, got {x.dtype}")
-    _cuda.require(x.dim() == 3, "x must be a (B, T, C) tensor")
-    x = x.contiguous()  # the first block's input is a transposed view of the embedding conv's output
-    b, t, c = x.shape
-    _cuda.require(c % 64 == 0 and 64 <= c <= 768, f"C={c} must be a multiple of 64 up to 768")
-    inter = block.pwconv1.weight.shape[0]
-    _cuda.require(inter % 32 == 0, f"I={inter} must be a multiple of 32")
-    fv = t if frame_valid is None else int(frame_valid)
-    _cuda.require(fv >= 0, f"frame_valid must be >= 0, got {fv}")
-    dev, dt = x.device, x.dtype
-    dw_w, dw_b = _dw_taps(block, dt)
-    args = [dw_w.contiguous(), _vec(dw_b, c, dt, dev), _vec(block.norm.weight, c, dt, dev),
-            _vec(block.norm.bias, c, dt, dev), block.pwconv1.weight.to(dt).contiguous(),
-            _vec(block.pwconv1.bias, inter, dt, dev), block.pwconv2.weight.to(dt).contiguous(),
-            _vec(block.pwconv2.bias, c, dt, dev), _vec(block.gamma, c, dt, dev)]
-    out = torch.empty_like(x)
-    _cuda.launch("convnext_dw", "convnext_dw_bf16", f"convnext_dw:{c}x{inter}", _cuda.ptr(x),
-                 *map(_cuda.ptr, args), _cuda.ptr(out), *map(_cuda.c_int, (b, t, c, inter, min(fv, t))),
-                 _cuda.c_float(eps), _cuda.stream(dev))
-    return out
+    return _ffn_launch("dw", x, block, frame_valid, eps)

@@ -93,7 +93,9 @@ def _dw_params(rng, c, inter):
     return p, block
 
 
-@pytest.mark.parametrize("frame_valid", [None, 150])  # 150: the edge off a tile boundary
+# 150: the edge off a tile boundary; 0: no valid row, so every tap reads a zero
+# and LN normalises the bias row
+@pytest.mark.parametrize("frame_valid", [None, 150, 0])
 def test_convnext_block_dw_plain_matches_jax_kernel(frame_valid):
     rng = np.random.default_rng(2)
     b, tt, c, inter = 2, 192, 64, 128  # the JAX kernel tiles T by 96: two tiles and their halos
@@ -106,6 +108,15 @@ def test_convnext_block_dw_plain_matches_jax_kernel(frame_valid):
     np.testing.assert_allclose(n(got), n(want), atol=2e-5)
 
 
+def _two_step(x, block, frame_valid):
+    """The composition that B4 fuses: masked depthwise k7, then B2."""
+    b, tt, c = x.shape
+    fv = tt if frame_valid is None else frame_valid
+    mask = (torch.arange(tt) < fv).to(x.dtype)[None, :, None]
+    xdw = depthwise_conv1d_shifts(x * mask, block.dwconv.weight[:, 0, :].t(), block.dwconv.bias, padding=3)
+    return tfc.fused_convnext_ffn(xdw.reshape(b * tt, c), x.reshape(b * tt, c), block).reshape(b, tt, c)
+
+
 def test_convnext_block_dw_any_t():
     """T = 203 has no tile size the JAX kernel accepts; the port takes any T.
     Held against the two-step composition: masked f32 depthwise, then B2."""
@@ -115,8 +126,35 @@ def test_convnext_block_dw_any_t():
     x = t(rng.standard_normal((b, tt, c)).astype(np.float32))
     with torch.no_grad():
         got = tfc.fused_convnext_block_dw(x, block, fv)
-        mask = (torch.arange(tt) < fv).to(x.dtype)[None, :, None]
-        xdw = depthwise_conv1d_shifts(x * mask, block.dwconv.weight[:, 0, :].t(), block.dwconv.bias, padding=3)
-        want = tfc.fused_convnext_ffn(xdw.reshape(b * tt, c), x.reshape(b * tt, c), block).reshape(b, tt, c)
+        want = _two_step(x, block, fv)
     np.testing.assert_allclose(n(got), n(want), atol=2e-5)
 
+
+@pytest.mark.parametrize("tt,frame_valid", [(1, None), (1, 0), (5, None), (5, 3), (5, 0), (5, 9), (40, 0), (40, 57)])
+def test_convnext_block_dw_short_t_and_edges(tt, frame_valid):
+    """T shorter than the 7-row window (1: one row and six zero halo rows;
+    5), no valid row (frame_valid = 0: xdw is the bias) and a bound past T
+    (read as T), against the two-step composition; finite everywhere."""
+    rng = np.random.default_rng(4)
+    _, block = _dw_params(rng, 64, 96)
+    x = t(rng.standard_normal((2, tt, 64)).astype(np.float32))
+    with torch.no_grad():
+        got = tfc.fused_convnext_block_dw(x, block, frame_valid)
+        want = _two_step(x, block, frame_valid)
+    assert got.shape == x.shape and np.isfinite(n(got)).all()
+    np.testing.assert_allclose(n(got), n(want), atol=2e-5)
+
+
+def test_convnext_block_dw_batch_items_are_independent():
+    """A batch of 3 equals each item run alone: an item's depthwise window
+    never reaches into its neighbour's rows (the CUDA row kernel indexes its
+    halo by (b, t), not by the flattened row).  The items' scales differ by
+    10x, so a leaked row would show far above the tolerance."""
+    rng = np.random.default_rng(5)
+    _, block = _dw_params(rng, 64, 96)
+    scale = np.array([1.0, 10.0, 0.1], np.float32)[:, None, None]
+    x = t(rng.standard_normal((3, 45, 64)).astype(np.float32) * scale)
+    with torch.no_grad():
+        got = tfc.fused_convnext_block_dw(x, block, 40)
+        alone = torch.cat([tfc.fused_convnext_block_dw(x[i:i + 1], block, 40) for i in range(3)])
+    np.testing.assert_allclose(n(got), n(alone), atol=2e-5)

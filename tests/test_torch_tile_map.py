@@ -81,17 +81,24 @@ def test_profile_groups_name_the_kernels():
     """Each hand kernel's traced name falls in its own group and no other, and
     a launched kernel that no group matches is reported."""
     prof = _profile_tool()
-    gemm_args = "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, ffn_sm90::Shape, (anonymous namespace)::{})"
+    gemm_args = "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, ffn_sm90::Shape, {})"
     names = [
         ("B1 pflash", "void (anonymous namespace)::pflash_sm90_kernel<64>(CUtensorMap_st, int const*, __nv_bfloat16*, int, int)"),
         ("B2 ln_ffn", "void (anonymous namespace)::ln_ffn_bf16_rows_kernel<12>(__nv_bfloat16 const*, float)"),
-        ("B2 ln_ffn", "void (anonymous namespace)::ln_ffn_bf16_up_kernel<128>" + gemm_args.format("UpEpilogue")),
-        ("B2 ln_ffn", "void (anonymous namespace)::ln_ffn_bf16_down_kernel<192>" + gemm_args.format("DownEpilogue")),
+        ("B2 ln_ffn", "void (anonymous namespace)::ln_ffn_bf16_up_kernel<128>" + gemm_args.format("ffn_bf16::UpEpilogue")),
+        ("B2 ln_ffn", "void (anonymous namespace)::ln_ffn_bf16_down_kernel<192>" + gemm_args.format("ffn_bf16::DownEpilogue")),
         ("B3 ln_ffn_int8", "void (anonymous namespace)::ln_ffn_int8_rows_kernel<8>(__nv_bfloat16 const*, float)"),
-        ("B3 ln_ffn_int8", "void (anonymous namespace)::ln_ffn_int8_upmax_kernel<128>" + gemm_args.format("UpMaxEpilogue")),
-        ("B3 ln_ffn_int8", "void (anonymous namespace)::ln_ffn_int8_upq_kernel<128>" + gemm_args.format("UpQuantEpilogue")),
-        ("B3 ln_ffn_int8", "void (anonymous namespace)::ln_ffn_int8_down_kernel<256>" + gemm_args.format("DownEpilogue")),
-        ("B4 convnext_dw", "void (anonymous namespace)::convnext_dw_kernel<16>(__nv_bfloat16 const*)"),
+        ("B3 ln_ffn_int8", "void (anonymous namespace)::ln_ffn_int8_upmax_kernel<128>"
+         + gemm_args.format("(anonymous namespace)::UpMaxEpilogue")),
+        ("B3 ln_ffn_int8", "void (anonymous namespace)::ln_ffn_int8_upq_kernel<128>"
+         + gemm_args.format("(anonymous namespace)::UpQuantEpilogue")),
+        ("B3 ln_ffn_int8", "void (anonymous namespace)::ln_ffn_int8_down_kernel<256>"
+         + gemm_args.format("(anonymous namespace)::DownEpilogue")),
+        # B4 runs B2's passes under its own names
+        ("B4 convnext_dw", "void (anonymous namespace)::convnext_dw_rows_kernel<8>(__nv_bfloat16 const*, int, float)"),
+        ("B4 convnext_dw", "void (anonymous namespace)::convnext_dw_up_kernel<128>" + gemm_args.format("ffn_bf16::UpEpilogue")),
+        ("B4 convnext_dw", "void (anonymous namespace)::convnext_dw_down_kernel<256>"
+         + gemm_args.format("ffn_bf16::DownEpilogue")),
         ("B5 flash", "void (anonymous namespace)::flash_sm90_kernel<64>(CUtensorMap_st, CUtensorMap_st)"),
         ("GEMMs", "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroupsize1x1x1"),
         ("GEMMs", "nvjet_tst_192x192_64x4_2x1_v_bz_coopB_TNN"),
@@ -102,3 +109,4 @@ def test_profile_groups_name_the_kernels():
     launches = {"pflash_attention": 2, "ln_ffn_bf16:768x3072": 2, "flash_attention": 0}
     assert prof.unmatched_groups(launches, {"B1 pflash": 1.5, "B2 ln_ffn": 0.0}) == ["B2 ln_ffn"]
     assert prof.unmatched_groups(launches, {"B1 pflash": 1.5, "B2 ln_ffn": 2.0}) == []
+    assert prof.unmatched_groups({"convnext_dw:512x4096": 24}, {"B2 ln_ffn": 11.0}) == ["B4 convnext_dw"]

@@ -4,16 +4,18 @@
 Builds the full-width codec (config/SimWhisperCodec.yaml, random weights
 from a fixed seed), warms it, then traces one tokenize and one detokenize of
 a batch of 8 x 30 s with ``torch.profiler`` for each requested configuration
-(the serving modes, and ``flash-dw``: fast mode with the B5 attention core
-and the B4 whole-block Vocos kernel).  Prints per stage: host wall time of an
-untraced call, summed device time of the traced call, the device's idle
-share (1 - device time / untraced wall time; one stream, so kernels do not
-overlap) and the kernels that take the most device time, and the device time
-of these groups: the five hand kernels, host-to-device copies, and
-cuBLAS/cuDNN GEMMs.  The full table goes to ``<out_dir>/profile_<config>.json``.
+(the serving modes; ``flash-dw``: fast mode with the B5 attention core and
+the B4 whole-block Vocos kernel; ``fast-dw``: fast mode with B4, attention
+as in ``fast``, so that its detokenize differs from fast's in the Vocos
+alone).  Prints per stage: host wall time of an untraced call, summed
+device time of the traced call, the device's idle share (1 - device time /
+untraced wall time; one stream, so kernels do not overlap) and the kernels
+that take the most device time, and the device time of these groups: the
+five hand kernels, host-to-device copies, and cuBLAS/cuDNN GEMMs.  The full
+table goes to ``<out_dir>/profile_<config>.json``.
 
 Run from the repository root on the machine with the GPU:
-    python3 tools/profile_torch_port.py [--out_dir profiles] [--config all|fast-int8|fast|parity|flash-dw]
+    python3 tools/profile_torch_port.py [--out_dir profiles] [--config all|fast-int8|fast|parity|flash-dw|fast-dw]
 """
 
 from __future__ import annotations
@@ -31,15 +33,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 # kernel-name fragments of each reported group (the hand kernels by their
-# device-function names, every pass of B2 and B3 included, "::" included so
-# that B5's fragment does not match B1's).  No hand kernel's name contains
+# device-function names, every pass of B2, B3 and B4 included, "::" included
+# so that B5's fragment does not match B1's; B4 runs B2's passes under its
+# own kernel names).  No hand kernel's name contains
 # "gemm", so the library group never counts one of them a second time.
 GROUPS = {
     "B1 pflash": ("::pflash_sm90_kernel<",),
     "B2 ln_ffn": ("::ln_ffn_bf16_rows_kernel<", "::ln_ffn_bf16_up_kernel<", "::ln_ffn_bf16_down_kernel<"),
     "B3 ln_ffn_int8": ("::ln_ffn_int8_rows_kernel<", "::ln_ffn_int8_upmax_kernel<", "::ln_ffn_int8_upq_kernel<",
                        "::ln_ffn_int8_down_kernel<"),
-    "B4 convnext_dw": ("::convnext_dw_kernel<",),
+    "B4 convnext_dw": ("::convnext_dw_rows_kernel<", "::convnext_dw_up_kernel<", "::convnext_dw_down_kernel<"),
     "B5 flash": ("::flash_sm90_kernel<",),
     "host-to-device copies": ("Memcpy HtoD",),
     "GEMMs": ("gemm", "nvjet"),
@@ -67,6 +70,8 @@ CONFIGS = {
     "fast": {"mode": "fast"},
     "parity": {"mode": "parity"},
     "flash-dw": {"mode": "fast", "attn_impl": "flash", "vocos_impl": "fused-dw"},
+    # fast's B1 attention with B4's Vocos: against "fast", only the Vocos differs
+    "fast-dw": {"mode": "fast", "vocos_impl": "fused-dw"},
 }
 
 
