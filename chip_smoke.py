@@ -2,23 +2,30 @@
 """Drive the PyTorch/CUDA port (``simwhisper_codec_tpu_torch``) on one GPU.
 
 Phases, any failure exits non-zero:
-  1. build the five CUDA kernels of ``simwhisper_codec_tpu_torch/csrc`` with
+  1. build the CUDA kernels of ``simwhisper_codec_tpu_torch/csrc`` (the
+     five bf16/int8 sources and the f32 attention of ``attn_f32.cu``) with
      nvcc (sm_90a), one nvcc each, in parallel;
   2. hold each kernel against its plain PyTorch version at the main paths'
-     shapes (batch 8, bf16) and time kernel, plain version and, where one
-     exists, a single PyTorch library call computing the same function (for
-     B2 and B3, which no single call computes, the chain of library calls
-     as ``library_chain_ms``, and each pass of B2, B3 and B4 alone as
-     ``pass_ms``);
+     shapes (batch 8; bf16, and f32 for the f32 attention kernels) and time
+     kernel, plain version and, where one exists, a single PyTorch library
+     call computing the same function (for B2 and B3, which no single call
+     computes, the chain of library calls as ``library_chain_ms``, and each
+     pass of B2, B3 and B4 alone as ``pass_ms``);
   3. run full-width random weights (config/SimWhisperCodec.yaml, fixed seed)
-     through ``AudioCodec.encode`` + ``decode`` in parity, fast, fast-int8
-     and fast with the flash attention core and the whole-block Vocos kernel
-     (``attn_impl="flash", vocos_impl="fused-dw"``), with launch counts read
-     around each run; then one fast-int8 encode + decode on the pcm16 wire;
-  4. start the port's HTTP server twice (fast-int8; float32 and pcm16 wire)
-     and send them requests, while the batch CLI
-     (``python -m simwhisper_codec_tpu_torch.inference``) turns two WAVs into
-     reconstructions from a saved reference-layout checkpoint;
+     through ``AudioCodec.encode`` + ``decode`` in parity, fast, fast-int8,
+     fast with the flash attention core and the whole-block Vocos kernel
+     (``attn_impl="flash", vocos_impl="fused-dw"``) and parity with the f32
+     attention kernels (``attn_impl`` ``pflash`` and ``flash``), with launch
+     counts read around each run; the fast modes once more at "highest"
+     precision (TF32 off) for comparison; one fast-int8 encode + decode on
+     the pcm16 wire; then streaming sessions in fast-int8 against the batch
+     calls;
+  4. evaluate a small corpus (FLAC, WAV, MP3 where the system libraries
+     exist, one corrupt file) through ``evaluate_corpus`` and the native
+     loader; start the port's HTTP server twice (fast-int8; float32 and
+     pcm16 wire) and send them requests, while the batch CLI
+     (``python -m simwhisper_codec_tpu_torch.inference``) turns a FLAC and a
+     WAV into reconstructions from a saved reference-layout checkpoint;
   5. print the kernel table, the GPU's name and power limit, and the result.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -41,7 +48,13 @@ import numpy as np
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12
+# f32-accurate products on the tensor cores take three TF32 products (a 3 x
+# TF32 split) at the dense TF32 peak of 494.7 TFLOP/s
+H100_F32_ACCURATE_FLOPS = 494.7e12 / 3
 H100_BYTES_PER_S = 3.35e12
+PEAK_NAMES = {H100_BF16_FLOPS: "989 TFLOP/s bf16 (H100 SXM, dense)",
+              H100_INT8_OPS: "1979 TOP/s int8 (H100 SXM, dense)",
+              H100_F32_ACCURATE_FLOPS: "494.7 TFLOP/s TF32 (H100 SXM, dense) / 3: f32-accurate work is 3 TF32 products"}
 UTTERANCE_SECONDS = (4.0, 17.0, 41.0)  # 41 s crosses the 20 s chunk stride twice
 # label -> AudioCodec arguments of each full-width run of phase 3
 RUNS = {
@@ -49,7 +62,10 @@ RUNS = {
     "fast": {"mode": "fast"},
     "fast-int8": {"mode": "fast-int8"},
     "fast-flash-dw": {"mode": "fast", "attn_impl": "flash", "vocos_impl": "fused-dw"},
+    "parity-pflash": {"mode": "parity", "attn_impl": "pflash"},
+    "parity-flash": {"mode": "parity", "attn_impl": "flash"},
 }
+STREAM_SECONDS = 47  # two strides and a tail
 
 
 def log(msg: str) -> None:
@@ -153,7 +169,7 @@ def check_kernel(torch, name, kernel, plain, args, atol, rtol, flops, peak, nbyt
         f"bound {b_ms:.4f} ms ({b_by}), flops={flops:.4g}, bytes={nbytes:.4g}")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, **extra}
+            "bound_peak": PEAK_NAMES[peak], "library_ms": lib_ms, **extra}
 
 
 def library_chain_bf16(torch, x, res, ln_w, ln_b, w1, b1, w2, b2, gamma, eps):
@@ -262,6 +278,7 @@ def kernel_phase(torch):
                              "simwhisper_codec_tpu/ops/flash_attention.py:62", "simwhisper_codec_tpu_torch/csrc/flash.cu",
                              library=sdpa, full_lengths_ms=lambda: fa.flash_attention(q, k, v, full),
                              library_full_ms=sdpa_full))
+    rows += attention_f32_rows(torch, randn, fa, (b, t, h, hd), lengths, flops)
 
     # Tolerances: bf16 outputs are compared as |d| <= atol + 1.6e-2 |plain|
     # (1.6e-2 is two bf16 half-ulps).  For int8 the atol is wider: LN sums in
@@ -304,6 +321,62 @@ def kernel_phase(torch):
     rows.append(check_convnext_dw(torch, randn, fc))
     check_other_shapes(torch, randn, fa, fc, quantize_weight)
     return rows
+
+
+def attention_f32_rows(torch, randn, fa, shape, lengths, flops):
+    """B1 and B5 on f32 inputs (parity mode with attn_impl "pflash" or
+    "flash"), at the bf16 rows' shape and lengths.  The plain versions and
+    the library run with TF32 off (``f32_precision("highest")``), and the
+    kernels must agree to |d| <= 1e-5 + 1e-5 |plain|: f32 sums in another
+    order, exact exp and division.  Library: SDPA on the same f32 views with
+    the boolean key mask, and without a mask at full lengths."""
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+
+    b, t, h, hd = shape
+    d = h * hd
+    qkv = randn(b, t, 3 * d, dtype=torch.float32)
+    qkv[..., :d] *= hd ** -0.5
+    q, k, v = head_views(qkv, h)
+    dev = qkv.device
+    key_mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    full = torch.full_like(lengths, t)
+    nbytes = qkv.numel() * 4 + b * t * d * 4 + lengths.numel() * 4
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=key_mask, scale=1.0)
+    sdpa_full = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0)
+    rows = []
+    with f32_precision("highest"):
+        rows.append(check_kernel(torch, "pflash_attention_f32", fa.fused_qkv_attention, fa.fused_qkv_attention_plain,
+                                 (qkv, lengths, h), 1e-5, 1e-5, flops, H100_F32_ACCURATE_FLOPS, nbytes,
+                                 "simwhisper_codec_tpu/ops/flash_attention.py:162",
+                                 "simwhisper_codec_tpu_torch/csrc/attn_f32.cu", library=sdpa, iters=10,
+                                 full_lengths_ms=lambda: fa.fused_qkv_attention(qkv, full, h),
+                                 library_full_ms=sdpa_full))
+        rows.append(check_kernel(torch, "flash_attention_f32", fa.flash_attention, fa.flash_attention_plain,
+                                 (q, k, v, lengths), 1e-5, 1e-5, flops, H100_F32_ACCURATE_FLOPS, nbytes,
+                                 "simwhisper_codec_tpu/ops/flash_attention.py:62",
+                                 "simwhisper_codec_tpu_torch/csrc/attn_f32.cu", library=sdpa, iters=10,
+                                 full_lengths_ms=lambda: fa.flash_attention(q, k, v, full),
+                                 library_full_ms=sdpa_full))
+    return rows
+
+
+def check_attention_f32_shapes(torch, randn, fa):
+    """The f32 kernels at every head dim, B = 3, T = 203 (a ragged last
+    tile), lengths 203, 77 and 0 (uniform average), q pre-scaled as the
+    codec scales it; tolerance as at the main shape."""
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+
+    lengths = torch.tensor([203, 77, 0], dtype=torch.int32, device=randn(1).device)
+    with f32_precision("highest"):
+        for hd in fa.HEAD_DIMS:
+            qkv = randn(3, 203, 3 * 4 * hd, dtype=torch.float32)
+            qkv[..., :4 * hd] *= hd ** -0.5
+            args = (qkv, lengths, 4)
+            compare(torch, f"pflash_attention_f32 hd={hd}", fa.fused_qkv_attention(*args),
+                    fa.fused_qkv_attention_plain(*args), 1e-5, 1e-5)
+            args = (*head_views(qkv, 4), lengths)
+            compare(torch, f"flash_attention_f32 hd={hd}", fa.flash_attention(*args), fa.flash_attention_plain(*args),
+                    1e-5, 1e-5)
 
 
 def check_convnext_dw(torch, randn, fc):
@@ -369,6 +442,7 @@ def check_other_shapes(torch, randn, fa, fc, quantize_weight):
         agree(f"pflash_attention hd={hd}", fa.fused_qkv_attention(*args), fa.fused_qkv_attention_plain(*args), 1e-2)
         args = (*head_views(qkv, 4), lengths)
         agree(f"flash_attention hd={hd}", fa.flash_attention(*args), fa.flash_attention_plain(*args), 1e-2)
+    check_attention_f32_shapes(torch, randn, fa)
     check_convnext_dw_shapes(torch, randn, fc)
     # ragged M (1 row; 127, one short of a block tile; 301), narrow C and I
     for m in (1, 127, 301):
@@ -394,6 +468,8 @@ def expected_launches(label: str, cfg, n_tok: int, n_detok: int) -> dict:
     if label == "parity":
         return {}
     attn = n_tok * enc.encoder_layers + n_detok * dec.decoder_layers
+    if label in ("parity-pflash", "parity-flash"):
+        return {("pflash_attention_f32" if label == "parity-pflash" else "flash_attention_f32"): attn}
     if label == "fast-flash-dw":
         return {"flash_attention": attn, f"ln_ffn_bf16:{tshape}": attn,
                 f"convnext_dw:{vshape}": n_detok * voc.num_layers}
@@ -429,17 +505,7 @@ def codec_phase(torch, cfg, model):
     for label, kwargs in RUNS.items():
         codec = codecs[label] = AudioCodec(cfg, model, batch_size=8, device="cuda", **kwargs)
         codec.decode(codec.encode([utts[0][:sr]])["codes_list"])  # warm-up, not counted
-        # stage times on one full batch of 8 x 30 s
-        stage = {}
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tok = codec.inference_tokenize(batch, np.full(8, cfg.chunk_samples))
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            codec.inference_detokenize(tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy())
-            torch.cuda.synchronize()
-            stage = {"tokenize_ms": (t1 - t0) * 1e3, "detokenize_ms": (time.perf_counter() - t1) * 1e3}
+        stage = stage_times(torch, codec, batch)
         # the path under test: chunked encode + decode of the utterances
         _cuda.reset_launch_counts()
         torch.cuda.synchronize()
@@ -466,9 +532,80 @@ def codec_phase(torch, cfg, model):
         assert np.array_equal(a, b), "fast-int8 codes differ from fast codes"
     log(f"[codec] fast-int8 codes == fast codes; code agreement: fast vs parity "
         f"{share_equal(codes_by_run['fast'], codes_by_run['parity']):.4f}, fast-flash-dw vs fast "
-        f"{share_equal(codes_by_run['fast-flash-dw'], codes_by_run['fast']):.4f}")
+        f"{share_equal(codes_by_run['fast-flash-dw'], codes_by_run['fast']):.4f}, parity-pflash vs parity "
+        f"{share_equal(codes_by_run['parity-pflash'], codes_by_run['parity']):.4f}, parity-flash vs parity "
+        f"{share_equal(codes_by_run['parity-flash'], codes_by_run['parity']):.4f} (report only)")
+    for label in ("fast", "fast-int8"):
+        precision_check(torch, codecs[label], label, batch, utts, codes_by_run[label])
     pcm16_check(torch, cfg, model, codecs["fast-int8"], utts)
-    return launches_by_run
+    streaming_check(torch, cfg, codecs["fast-int8"])
+    return launches_by_run, codecs["fast-int8"]
+
+
+def stage_times(torch, codec, batch) -> dict:
+    """Tokenize and detokenize ms of one full batch of 8 x 30 s (host clock
+    around synchronised calls; the second of two repetitions)."""
+    n = batch.shape[1]
+    stage = {}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = codec.inference_tokenize(batch, np.full(len(batch), n))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        codec.inference_detokenize(tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy())
+        torch.cuda.synchronize()
+        stage = {"tokenize_ms": (t1 - t0) * 1e3, "detokenize_ms": (time.perf_counter() - t1) * 1e3}
+    return stage
+
+
+def precision_check(torch, codec, label, batch, utts, codes_default) -> None:
+    """The fast modes run at "default" precision (TF32 for the f32 mel DFT,
+    FSQ and ISTFT).  The same codec at "default" and at "highest" (TF32
+    off), timed in turns (default, highest, highest, default; stage ms the
+    mean of each setting's two), and the code agreement of the two settings
+    (report only)."""
+    assert codec.precision == "default", (label, codec.precision)
+    times = {"default": [], "highest": []}
+    try:
+        for setting in ("default", "highest", "highest", "default"):
+            codec.precision = setting
+            times[setting].append(stage_times(torch, codec, batch))
+        codec.precision = "highest"
+        codes = codec.encode(utts)["codes_list"]
+    finally:
+        codec.precision = "default"
+    mean = {s: {k: float(np.mean([t[k] for t in ts])) for k in ts[0]} for s, ts in times.items()}
+    log(f"[precision] {label}: " + "; ".join(
+        f"{s} tokenize {m['tokenize_ms']:.2f} ms, detokenize {m['detokenize_ms']:.2f} ms" for s, m in mean.items())
+        + f"; code agreement default vs highest {share_equal(codes_default, codes):.4f}")
+
+
+def streaming_check(torch, cfg, codec):
+    """fast-int8 streaming sessions at full width: a 47 s utterance fed in
+    12345-sample blocks gives encode's codes exactly; its codes fed in
+    37-frame blocks give decode's waveform within 1e-6."""
+    from simwhisper_codec_tpu_torch.models.streaming import StreamingDecoder, StreamingEncoder
+
+    wav = (np.random.default_rng(6).standard_normal(STREAM_SECONDS * cfg.input_sample_rate) * 0.1).astype(np.float32)
+    t0 = time.perf_counter()
+    codes = codec.encode([wav])["codes_list"][0]
+    batch_wav = codec.decode([codes])["syn_wav_list"][0]
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = StreamingEncoder(codec)
+    parts = [out for i in range(0, len(wav), 12345) if (out := enc.feed(wav[i:i + 12345])) is not None]
+    streamed = np.concatenate(parts + [t for t in [enc.flush()] if t is not None], axis=1)
+    dec = StreamingDecoder(codec)
+    waves = [out for i in range(0, codes.shape[1], 37) if (out := dec.feed(codes[:, i:i + 37])) is not None]
+    streamed_wav = np.concatenate(waves + [t for t in [dec.flush()] if t is not None])
+    stream_s = time.perf_counter() - t0
+    assert streamed.shape == codes.shape and np.array_equal(streamed, codes), "streamed codes != encode's codes"
+    err = float(np.abs(streamed_wav - batch_wav).max()) if streamed_wav.shape == batch_wav.shape else float("inf")
+    log(f"[stream] fast-int8, {STREAM_SECONDS} s: codes {codes.shape} == encode's; waveform {streamed_wav.shape}, "
+        f"max |streamed - decode| = {err:.3g} (atol 1e-6); {len(parts)} code strides and {len(waves)} waveform "
+        f"strides before the flush; batch {batch_s:.3f} s, streamed {stream_s:.3f} s")
+    assert err <= 1e-6, "streamed waveform != decode's waveform"
 
 
 def pcm16_check(torch, cfg, model, codec_f32, utts):
@@ -576,15 +713,21 @@ def serve_pcm16_check(port):
 
 
 def write_inputs(torch, model, tmp: Path, sr: int) -> dict:
-    """A reference-layout checkpoint of ``model`` and two WAVs for the CLI."""
+    """A reference-layout checkpoint of ``model`` and the CLI's two inputs:
+    a FLAC (3 s) and a WAV (41 s)."""
     from simwhisper_codec_tpu_torch.utils.audio_io import save_audio
+    from simwhisper_codec_tpu_torch.utils.flac import write_flac
 
     torch.save({"model": model.state_dict()}, tmp / "ckpt.pt")
     (tmp / "in").mkdir()
     rng = np.random.default_rng(5)
     lengths = {"short": 3 * sr, "long": 41 * sr}
     for stem, n in lengths.items():
-        save_audio(tmp / "in" / f"{stem}.wav", (rng.standard_normal(n) * 0.1).astype(np.float32), sr)
+        wav = (rng.standard_normal(n) * 0.1).astype(np.float32)
+        if stem == "short":
+            write_flac(tmp / "in" / f"{stem}.flac", np.round(wav * 32767).astype(np.int64), sr)
+        else:
+            save_audio(tmp / "in" / f"{stem}.wav", wav, sr)
     return lengths
 
 
@@ -596,7 +739,49 @@ def check_cli_outputs(tmp: Path, lengths: dict, sr: int) -> None:
     for stem, n in lengths.items():
         y = load_audio(tmp / "out" / f"{stem}.wav", sr)
         assert y.shape == (n // 1280 * 1280,) and np.isfinite(y).all(), (stem, y.shape)
-    log(f"[cli] python -m simwhisper_codec_tpu_torch.inference --mode fast: wrote {names}")
+    log(f"[cli] python -m simwhisper_codec_tpu_torch.inference --mode fast: short.flac + long.wav -> {names}")
+
+
+def corpus_phase(torch, cfg, codec):
+    """``evaluate_corpus`` at full width in fast-int8, batch 8, on a
+    temporary corpus: two FLAC files, two WAVs, one MP3 where the system
+    libmpg123 and libmp3lame exist, and one corrupt file.  Every length is a
+    multiple of 1280 samples, so the bitrate is bits_per_frame x 12.5 Hz."""
+    from simwhisper_codec_tpu_torch.eval.corpus import evaluate_corpus
+    from simwhisper_codec_tpu_torch.ops.fsq import bits_per_frame
+    from simwhisper_codec_tpu_torch.utils import mp3, native_loader
+    from simwhisper_codec_tpu_torch.utils.audio_io import save_audio
+    from simwhisper_codec_tpu_torch.utils.flac import write_flac
+
+    sr, rng = cfg.input_sample_rate, np.random.default_rng(7)
+    wav = lambda n: (rng.standard_normal(n) * 0.1).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        corpus, out = Path(tmp_name) / "corpus", Path(tmp_name) / "out"
+        corpus.mkdir()
+        for name, n in (("a.flac", 32 * 1280), ("b.flac", 80 * 1280)):
+            write_flac(corpus / name, np.round(wav(n) * 32767).astype(np.int64), sr)
+        save_audio(corpus / "c.wav", wav(64 * 1280), sr)
+        save_audio(corpus / "d.wav", wav(416 * 1280), sr)  # 33.28 s: two chunks
+        (corpus / "e.flac").write_bytes(b"fLaC" + bytes(12))
+        files = 4
+        if mp3.have_mpg123() and mp3.have_lame():
+            mp3.write_mp3(corpus / "f.mp3", wav(48 * 1280), sr)
+            files += 1
+        else:
+            log(f"mp3 not checked: no {'libmpg123' if not mp3.have_mpg123() else 'libmp3lame'}")
+        before = dict(native_loader.loaded_files)
+        stats = evaluate_corpus(codec, str(corpus), str(out), batch_size=8)
+        log(f"[corpus] {json.dumps(stats)}")
+        native = native_loader.loaded_files["native"] - before["native"]
+        assert native_loader.available() and native == 4, f"native loader decoded {native} files, not 4"
+        assert stats["files"] == files and stats["skipped"] == 1, stats
+        want_bps = bits_per_frame(cfg.quantizer) * sr / cfg.encoder_downsample_rate
+        assert abs(stats["bitrate_bps"] - want_bps) <= 0.05, (stats["bitrate_bps"], want_bps)
+        written = sorted(p.name for p in out.iterdir())
+        assert len(written) == files, written
+    log(f"[corpus] native loader ({native_loader.library_path().name}) decoded the {native} FLAC and WAV files, "
+        f"Python {native_loader.loaded_files['python'] - before['python']}; wrote {written}; bitrate "
+        f"{stats['bitrate_bps']} bps = bits_per_frame x 12.5 Hz ({want_bps:.2f})")
 
 
 def serve_and_cli_phase(torch, cfg, model):
@@ -654,11 +839,13 @@ def main() -> int:
     model = init_params(cfg, torch.Generator().manual_seed(0))
     log(f"[codec] full-width random weights: {sum(p.numel() for p in model.parameters())} parameters, "
         f"init {time.perf_counter() - t0:.1f} s")
-    launches = codec_phase(torch, cfg, model)
+    launches, serving_codec = codec_phase(torch, cfg, model)
     for row in rows:  # launches on the serving default's path, else on the first run that launched it
-        row["launches"] = next((launches[r][row["name"]] for r in ("fast-int8", "fast", "fast-flash-dw")
+        row["launches"] = next((launches[r][row["name"]] for r in ("fast-int8", "fast", "fast-flash-dw",
+                                                                  "parity-pflash", "parity-flash")
                                 if launches[r].get(row["name"])), 0)
         row["launches_by_run"] = {r: launches[r].get(row["name"], 0) for r in launches}
+    corpus_phase(torch, cfg, serving_codec)
     serve_and_cli_phase(torch, cfg, model)
     print(gpu_line())  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": rows}))

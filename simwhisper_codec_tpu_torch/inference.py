@@ -4,8 +4,10 @@ The PyTorch counterpart of the repository's ``inference.py`` (reference
 ``inference.py:9-67``): the same flags, the same chunked encode/decode round
 trip and the same output naming (``<stem>.wav``, 16-bit PCM).  ``--device``
 is a torch device (default ``cuda``); ``--precision default`` allows TF32
-for the float32 matmuls and convolutions (the counterpart of
-``Precision.DEFAULT``).  Inputs are WAV files.
+for the float32 matmuls and convolutions of parity mode (the counterpart of
+``Precision.DEFAULT``; the fast modes always run it).  Inputs are WAV, FLAC
+or MP3 files, read a batch at a time through the native loader
+(``utils/native_loader.py``), as the JAX CLI reads them.
 
 Run:  python -m simwhisper_codec_tpu_torch.inference --input_dir in --output_dir out
 """
@@ -17,7 +19,8 @@ import logging
 import os
 
 from simwhisper_codec_tpu_torch.models.codec import MODES, PRECISIONS, AudioCodec
-from simwhisper_codec_tpu_torch.utils.audio_io import find_audio_files, load_audio, save_audio, set_logging
+from simwhisper_codec_tpu_torch.utils.audio_io import find_audio_files, save_audio, set_logging
+from simwhisper_codec_tpu_torch.utils.native_loader import load_audio_batch
 
 
 def main(argv=None) -> None:
@@ -30,7 +33,9 @@ def main(argv=None) -> None:
     parser.add_argument("--input_dir", type=str, default="input_wavs")
     parser.add_argument("--output_dir", type=str, default="output_wavs")
     parser.add_argument("--overlap_seconds", type=int, default=10)
-    parser.add_argument("--precision", type=str, default="highest", choices=PRECISIONS)
+    parser.add_argument("--precision", type=str, default="highest", choices=PRECISIONS,
+                        help="parity mode's float32 matmuls and convolutions: highest (no TF32) or default "
+                             "(TF32); the fast modes always run default")
     parser.add_argument("--mode", type=str, default="parity", choices=MODES,
                         help="parity: f32 bit-exact codes; fast: bf16 serving path")
     args = parser.parse_args(argv)
@@ -48,7 +53,9 @@ def main(argv=None) -> None:
         batch_paths = audio_paths[i: i + batch_size]
         logging.info("Processing batch %d/%d, files: %s", i // batch_size + 1,
                      (len(audio_paths) + batch_size - 1) // batch_size, batch_paths)
-        wav_list = [load_audio(p, target_sample_rate=generator.input_sample_rate) for p in batch_paths]
+        # WAV and FLAC decoded by the native thread pool, MP3 in Python; a
+        # file that fails raises, as the reference's torchaudio.load would
+        wav_list = load_audio_batch(batch_paths, target_sample_rate=generator.input_sample_rate)
         logging.info("Loaded %d files, lengths %s", len(wav_list), [len(w) for w in wav_list])
 
         codes_list = generator.encode(wav_list, overlap_seconds=args.overlap_seconds)["codes_list"]

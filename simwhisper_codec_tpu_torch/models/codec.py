@@ -20,8 +20,11 @@ and Vocos chain), ``fast-int8`` (as ``fast`` for tokenize; the decoder FFNs
 and Vocos chains run the fused int8 kernel, so codes equal ``fast`` codes)
 and ``fast-int8-full`` (int8 FFNs on both sides).  ``attn_impl`` picks the
 attention core (``flash``: kernel B5) and, in ``fast``, ``vocos_impl`` the
-Vocos block (``fused-dw``: kernel B4).  By default TF32 is off for every
-float32 matmul and convolution, the counterpart of ``Precision.HIGHEST``.
+Vocos block (``fused-dw``: kernel B4).  In ``parity`` TF32 is off for every
+float32 matmul and convolution by default, the counterpart of
+``Precision.HIGHEST``; the fast modes run at ``default`` precision (TF32 on,
+the counterpart of ``Precision.DEFAULT``) whatever the caller asks, as the
+JAX package's fast modes do.
 
 The ``wire`` is the host <-> device waveform format: ``float32``, or
 ``pcm16``, which ships int16 (dequantised on the device) and brings decoded
@@ -176,7 +179,8 @@ def mode_programs(mode: str, attn_impl: Optional[str] = None, vocos_impl: Option
 def f32_precision(precision: str = "highest"):
     """TF32 for float32 matmuls and cuDNN convolutions inside the block:
     off for ``highest`` (the counterpart of ``Precision.HIGHEST``), on for
-    ``default``."""
+    ``default``.  cuDNN's ``deterministic`` and ``benchmark`` flags keep
+    their values; every flag is restored after the block."""
     allow = precision == "default"
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = allow
@@ -186,7 +190,6 @@ def f32_precision(precision: str = "highest"):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-
 
 
 def resolve_device(device=None) -> torch.device:
@@ -206,11 +209,12 @@ class AudioCodec:
         """``model`` is moved to ``device`` (default ``cuda``); int8 modes add
         the quantised weights to it as non-persistent buffers.
 
-        ``attn_impl`` and ``vocos_impl``: see ``mode_programs``.  The
-        attention kernels take bf16, so ``pflash`` and ``flash`` in parity
-        mode run on the CPU only.  ``wire``: ``float32`` or ``pcm16`` (see
-        the module docstring).  ``precision``: ``highest`` (no TF32) or
-        ``default`` (TF32 for the float32 matmuls and convolutions)."""
+        ``attn_impl`` and ``vocos_impl``: see ``mode_programs``; in parity
+        mode ``pflash`` and ``flash`` run the f32 attention kernels.
+        ``wire``: ``float32`` or ``pcm16`` (see the module docstring).
+        ``precision``: ``highest`` (no TF32) or ``default`` (TF32 for the
+        float32 matmuls and convolutions); parity mode takes the caller's,
+        the fast modes always run ``default``, as the JAX package's do."""
         if wire not in WIRES:
             raise ValueError(f"wire must be one of {WIRES}, got {wire!r}")
         if precision not in PRECISIONS:
@@ -218,11 +222,9 @@ class AudioCodec:
         self.cfg = cfg
         self.mode = mode
         self.wire = wire
-        self.precision = precision
+        self.precision = precision if mode == "parity" else "default"
         self.device = resolve_device(device)
         self._tok_kw, self._detok_kw = mode_programs(mode, attn_impl, vocos_impl)
-        if self.device.type == "cuda" and mode == "parity" and self._tok_kw["attn_impl"] != "dense":
-            raise ValueError(f"attn_impl={attn_impl!r} runs a bf16 kernel; parity mode on CUDA takes 'dense'")
         # transfer granularity of the int16 encode wire: the host pads only to
         # the next bucket, the device pads to the chunk
         self._wire_bucket = max(1, cfg.chunk_samples // 10)

@@ -8,9 +8,10 @@ channels-last (B, T, D); parameters stay f32 and are cast to the activation
 dtype where they are used.
 
 Attention impls: ``dense`` (additive +1.0 / f32-min pair bias, parity
-mode), ``pflash`` (packed QKV + the ``csrc/pflash.cu`` core) and ``flash``
-(per-head q, k, v + the ``csrc/flash.cu`` core, weights normalised before
-the value product).  FFN impls:
+mode's default), ``pflash`` (packed QKV + the ``csrc/pflash.cu`` core) and
+``flash`` (per-head q, k, v + the ``csrc/flash.cu`` core, weights normalised
+before the value product); on f32 activations (parity mode) the two run the
+f32 cores of ``csrc/attn_f32.cu``.  FFN impls:
 ``dense`` (exact GELU), ``fused`` (``csrc/ln_ffn.cu``) and ``int8-fused``
 (``csrc/ln_ffn_int8.cu``; needs ``ops.quant.quantize_stacked_ffn``).
 """

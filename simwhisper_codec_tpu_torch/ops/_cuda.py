@@ -29,7 +29,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("pflash", "ln_ffn", "ln_ffn_int8", "flash", "convnext_dw")
+SOURCES = ("pflash", "ln_ffn", "ln_ffn_int8", "flash", "convnext_dw", "attn_f32")
 
 # kernel name (with its call shape) -> launches since the last reset
 launch_counts: Dict[str, int] = defaultdict(int)

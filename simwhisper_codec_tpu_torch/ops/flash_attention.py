@@ -4,17 +4,21 @@ Counterpart of ``simwhisper_codec_tpu/ops/flash_attention.py``:
 
 - ``fused_qkv_attention`` / ``varlen_attention_pflash`` (:162-263), on
   packed (B, T, 3D) QKV, normalisation deferred to the output: kernel
-  ``csrc/pflash.cu`` (B1);
+  ``csrc/pflash.cu`` (B1) for bf16, ``pflash_f32`` of ``csrc/attn_f32.cu``
+  for f32;
 - ``flash_attention`` / ``varlen_attention_flash`` (:62-100, :266-288), on
   (B, H, T, hd) q, k, v, weights normalised before the value product:
-  kernel ``csrc/flash.cu`` (B5).
+  kernel ``csrc/flash.cu`` (B5) for bf16, ``flash_attention_f32`` of
+  ``csrc/attn_f32.cu`` for f32.
 
-Both kernels are one Hopper design (``csrc/attn_sm90.cuh``): TMA tile
-loads into a shared-memory ring, ``wgmma`` for both products.  The tensor
-maps of their operands are encoded in C from the geometry that ``tile_map``
-computes here.  See the kernels' headers for their designs.  Each wrapper
-launches its kernel for a CUDA tensor and runs the plain version for a CPU
-tensor; there is no fallback between the two.
+The bf16 kernels are one Hopper design (``csrc/attn_sm90.cuh``): TMA tile
+loads into a shared-memory ring, ``wgmma`` for both products.  The f32
+kernels (parity mode with ``attn_impl`` ``pflash`` or ``flash``) load their
+tiles the same way and compute with f32 FMAs.  The tensor maps of all
+operands are encoded in C from the geometry that ``tile_map`` computes
+here.  See the kernels' headers for their designs.  Each wrapper launches
+its kernel for a CUDA tensor and runs the plain version for a CPU tensor;
+there is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -31,13 +35,18 @@ from simwhisper_codec_tpu_torch.ops import _cuda
 NEG_BIG = float(np.finfo(np.float32).min)
 KERNEL_NAME = "pflash_attention"
 FLASH_KERNEL_NAME = "flash_attention"
+# (library, C entry point, launch-count key) of each kernel, by input dtype
+PFLASH_KERNELS = {torch.bfloat16: ("pflash", "pflash_bf16", KERNEL_NAME),
+                  torch.float32: ("attn_f32", "pflash_f32", KERNEL_NAME + "_f32")}
+FLASH_KERNELS = {torch.bfloat16: ("flash", "flash_attention_bf16", FLASH_KERNEL_NAME),
+                 torch.float32: ("attn_f32", "flash_attention_f32", FLASH_KERNEL_NAME + "_f32")}
 HEAD_DIMS = (16, 32, 64, 128)
 TILE_ROWS = 64  # rows (keys, or query rows) of one TMA box: the kernels' key tile
-MAX_BOX_COLS = 64  # 128 bytes of bf16, the widest swizzle; hd = 128 takes two boxes
+MAX_BOX_BYTES = 128  # the widest swizzle: 64 bf16 or 32 f32 columns; wider heads take several boxes
 
 
 class TileMap(NamedTuple):
-    """TMA geometry of one bf16 operand of the attention kernels."""
+    """TMA geometry of one operand (bf16 or f32) of the attention kernels."""
 
     dims: Tuple[int, ...]  # elements, innermost first
     strides: Tuple[int, ...]  # bytes, of dims 1, 2, ...
@@ -57,14 +66,16 @@ def tile_map(x: torch.Tensor, hd: int) -> TileMap:
     ``x`` is the packed (B, T, 3D) QKV tensor (a 3-D map (3D, T, B): head h's
     q, k and v are boxes at columns h*hd, D + h*hd and 2D + h*hd) or a
     (B, H, T, hd) view (a 4-D map (hd, T, H, B) by its strides).  A box is
-    64 rows of min(hd, 64) columns, swizzled by its row width; rows past T
-    read as zeros.  Raises ValueError where the TMA cannot take the layout:
+    64 rows of at most 128 bytes (min(hd, 64) bf16 or min(hd, 32) f32
+    columns), swizzled by its row width; rows past T read as zeros.
+    Raises ValueError where the TMA cannot take the layout:
     a last dim that is not contiguous, a base not 16-byte aligned, a byte
     stride not a multiple of 16.
     """
     _cuda.require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    _cuda.require(x.dtype in (torch.bfloat16, torch.float32), f"a bf16 or f32 operand, got {x.dtype}")
     _cuda.require(x.dim() in (3, 4) and x.stride(-1) == 1, "the last dim must be contiguous")
-    item = 2  # bf16
+    item = x.element_size()
     if x.dim() == 3:
         b, t, width = x.shape
         dims, strides = (width, t, b), (x.stride(1), x.stride(0))
@@ -76,7 +87,7 @@ def tile_map(x: torch.Tensor, hd: int) -> TileMap:
     _cuda.require(all(s % 16 == 0 and 0 < s < 1 << 40 for s in byte_strides),
                   f"byte strides {byte_strides} must be positive multiples of 16")
     _cuda.require(x.data_ptr() % 16 == 0, "the tensor's base must be 16-byte aligned")
-    cols = min(hd, MAX_BOX_COLS)
+    cols = min(hd, MAX_BOX_BYTES // item)
     box = (cols, TILE_ROWS) + (1,) * (len(dims) - 2)
     return TileMap(dims, byte_strides, box, cols * item)
 
@@ -111,13 +122,14 @@ def fused_qkv_attention(qkv: torch.Tensor, lengths: torch.Tensor, num_heads: int
     """Attention core, (B, T, 3D) packed [q | k | v] -> (B, T, D).
 
     q must be pre-scaled by hd^-1/2 with its bias added; k has no bias.
-    CUDA tensors launch ``csrc/pflash.cu`` (bf16 only); CPU tensors run the
-    plain version.
+    CUDA tensors launch ``csrc/pflash.cu`` (bf16) or ``pflash_f32`` of
+    ``csrc/attn_f32.cu`` (f32); CPU tensors run the plain version.
     """
     if qkv.device.type == "cpu":
         return fused_qkv_attention_plain(qkv, lengths, num_heads)
     _cuda.require(qkv.device.type == "cuda", f"unsupported device {qkv.device}")
-    _cuda.require(qkv.dtype == torch.bfloat16, f"pflash kernel takes bfloat16, got {qkv.dtype}")
+    kernel = PFLASH_KERNELS.get(qkv.dtype)
+    _cuda.require(kernel is not None, f"pflash kernels take bfloat16 or float32, got {qkv.dtype}")
     _cuda.require(qkv.dim() == 3 and qkv.is_contiguous(), "qkv must be a contiguous (B, T, 3D) tensor")
     b, t, d3 = qkv.shape
     _cuda.require(d3 % 3 == 0 and (d3 // 3) % num_heads == 0, f"bad packed width {d3} for {num_heads} heads")
@@ -127,7 +139,7 @@ def fused_qkv_attention(qkv: torch.Tensor, lengths: torch.Tensor, num_heads: int
     lengths = lengths.to(torch.int32).contiguous()
     geom = tile_map(qkv, hd).as_c()
     out = torch.empty((b, t, d3 // 3), dtype=qkv.dtype, device=qkv.device)
-    _cuda.launch("pflash", "pflash_bf16", KERNEL_NAME, _cuda.ptr(qkv), _cuda.ptr(lengths), _cuda.ptr(out),
+    _cuda.launch(*kernel, _cuda.ptr(qkv), _cuda.ptr(lengths), _cuda.ptr(out),
                  *map(_cuda.c_int, (b, t, num_heads, hd)), geom, _cuda.stream(qkv.device))
     return out
 
@@ -169,8 +181,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, len
 
 def _strides(x: torch.Tensor) -> list:
     """The batch, head and time strides of the (B, H, T, hd) output, which the kernel writes by stride."""
-    _cuda.require(x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0,
-                  "out needs a contiguous, 16-byte aligned head dim and strides that are multiples of 8")
+    per16 = 16 // x.element_size()
+    _cuda.require(x.stride(-1) == 1 and all(s % per16 == 0 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0,
+                  f"out needs a contiguous, 16-byte aligned head dim and strides that are multiples of {per16}")
     return [_cuda.c_int64(s) for s in x.stride()[:3]]
 
 
@@ -181,22 +194,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: 
     (B, T, H, hd) projections transposed); for a CUDA tensor the output is
     a (B, H, T, hd) view of a contiguous (B, T, H, hd) buffer, so the caller's
     transpose back to (B, T, D) costs no copy.  CUDA tensors launch
-    ``csrc/flash.cu`` (bf16 only); CPU tensors run the plain version.
+    ``csrc/flash.cu`` (bf16) or ``flash_attention_f32`` of
+    ``csrc/attn_f32.cu`` (f32); CPU tensors run the plain version.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, lengths)
     _cuda.require(q.device.type == "cuda", f"unsupported device {q.device}")
     _cuda.require(q.dim() == 4 and k.shape == q.shape and v.shape == q.shape,
                   "q, k and v must be (B, H, T, hd) tensors of one shape")
-    _cuda.require(all(z.dtype == torch.bfloat16 and z.device == q.device for z in (q, k, v)),
-                  f"flash kernel takes bfloat16 q, k, v on one device, got {q.dtype}")
+    kernel = FLASH_KERNELS.get(q.dtype)
+    _cuda.require(kernel is not None and all(z.dtype == q.dtype and z.device == q.device for z in (k, v)),
+                  f"flash kernels take bfloat16 or float32 q, k, v of one dtype on one device, got {q.dtype}")
     b, h, t, hd = q.shape
     _cuda.require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
     _cuda.require(lengths.shape == (b,) and lengths.device == q.device, "lengths must be (B,) on the device")
     lengths = lengths.to(torch.int32).contiguous()
     geoms = [tile_map(z, hd).as_c() for z in (q, k, v)]
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    _cuda.launch("flash", "flash_attention_bf16", FLASH_KERNEL_NAME, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v),
+    _cuda.launch(*kernel, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v),
                  _cuda.ptr(lengths), _cuda.ptr(out), *map(_cuda.c_int, (b, h, t, hd)), *geoms,
                  *_strides(out), _cuda.stream(q.device))
     return out

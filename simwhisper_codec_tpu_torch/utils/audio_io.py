@@ -1,12 +1,13 @@
-"""Host-side audio I/O: WAV load/resample/save, file discovery, logging setup.
+"""Host-side audio I/O: load/resample/save, length probes, file discovery, logging setup.
 
 Reference ``utils/helpers.py``: load_audio (:77-93), save_audio (:95-103),
 find_audio_files (:105-111), set_logging (:60-75).  The port's own copy of
-the WAV parts of ``simwhisper_codec_tpu/utils/audio_io.py``: stdlib ``wave``
-for WAV PCM and a numpy implementation of torchaudio's default resampler
-(windowed-sinc polyphase, ``sinc_interp_hann``, lowpass_filter_width=6,
-rolloff=0.99), so resampled inputs produce the reference pipeline's codes.
-FLAC and MP3 decoding are not ported: ``load_audio`` refuses them.
+``simwhisper_codec_tpu/utils/audio_io.py``: stdlib ``wave`` for WAV PCM,
+the numpy FLAC decoder (``utils/flac.py``), the system libmpg123 for MP3
+(``utils/mp3.py``), soundfile only as a last resort, and a numpy
+implementation of torchaudio's default resampler (windowed-sinc polyphase,
+``sinc_interp_hann``, lowpass_filter_width=6, rolloff=0.99), so resampled
+inputs produce the reference pipeline's codes.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import logging
 import os
 import wave
 from math import gcd
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -99,16 +100,91 @@ def _load_wav_stdlib(path: str) -> tuple:
 
 
 def load_audio(path: str, target_sample_rate: int = 16000) -> np.ndarray:
-    """Load a WAV file -> mono float32 at the target rate (helpers.py:77-93
-    semantics: channel mean, then resampling)."""
+    """Load audio -> mono float32 at the target rate (helpers.py:77-93
+    semantics: channel mean, then resampling).
+
+    WAV through stdlib ``wave``, FLAC through ``utils/flac.py``, MP3 through
+    the system libmpg123 (``utils/mp3.py``); soundfile only for anything
+    those cannot read.  Raises ``RuntimeError`` when nothing decodes the
+    file, carrying the native decoder's error where there was one.
+    """
     path = str(path)
-    if not path.lower().endswith(".wav"):
-        raise ValueError(f"cannot decode {path}: this package reads WAV only "
-                         "(FLAC and MP3 decoding are not ported)")
-    data, sr = _load_wav_stdlib(path)
+    data: Optional[np.ndarray] = None
+    sr = None
+    lower = path.lower()
+    if lower.endswith(".wav"):
+        try:
+            data, sr = _load_wav_stdlib(path)
+        except Exception:
+            data = None
+    native_err: Optional[Exception] = None
+    if data is None and lower.endswith(".flac"):
+        from simwhisper_codec_tpu_torch.utils.flac import read_flac
+
+        try:
+            data, sr = read_flac(path)
+        except Exception as e:  # an unusual file: let soundfile try
+            native_err = e
+            data = None
+    if data is None and lower.endswith(".mp3"):
+        from simwhisper_codec_tpu_torch.utils import mp3
+
+        if mp3.have_mpg123():
+            try:
+                data, sr = mp3.read_mp3(path)
+            except Exception as e:
+                native_err = e
+                data = None
+    if data is None:
+        try:
+            import soundfile as sf
+
+            data, sr = sf.read(path, dtype="float32")
+        except ImportError as e:
+            if native_err is not None:  # surface the decoder's own error
+                raise RuntimeError(
+                    f"cannot decode {path}: native decoder failed "
+                    f"({native_err}) and soundfile is unavailable"
+                ) from native_err
+            raise RuntimeError(
+                f"cannot decode {path}: no native decoder for this format and "
+                "soundfile is unavailable"
+            ) from e
     if data.ndim > 1:
         data = data.mean(axis=1)  # mono mix, matching torch.mean(dim=0)
     return resample(data.astype(np.float32), sr, target_sample_rate)
+
+
+def probe_audio_length(path: str, target_sample_rate: int = 16000) -> int:
+    """Length in samples at the target rate, from the header where the
+    format has one (WAV frame count, FLAC STREAMINFO, an MP3 scan), so that
+    length bucketing does not hold a corpus in memory; else a full decode."""
+    path = str(path)
+    n = sr = None
+    lower = path.lower()
+    try:
+        if lower.endswith(".wav"):
+            with wave.open(path, "rb") as f:
+                n, sr = f.getnframes(), f.getframerate()
+        elif lower.endswith(".flac"):
+            from simwhisper_codec_tpu_torch.utils.flac import probe_flac
+
+            info = probe_flac(path)
+            if info["total_samples"]:
+                n, sr = info["total_samples"], info["sample_rate"]
+        elif lower.endswith(".mp3"):
+            from simwhisper_codec_tpu_torch.utils import mp3
+
+            if mp3.have_mpg123():
+                n, sr, _ch = mp3.probe_mp3(path)
+    except Exception:
+        n = None
+    if n is not None:
+        if sr == target_sample_rate:
+            return n
+        g = gcd(sr, target_sample_rate)
+        return -(-n * (target_sample_rate // g) // (sr // g))  # the resampler's ceil length
+    return len(load_audio(path, target_sample_rate))
 
 
 def to_pcm16(wav: np.ndarray) -> np.ndarray:

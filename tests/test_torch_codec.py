@@ -6,15 +6,20 @@
     versions vs the JAX kernels in interpret mode: codes equal, waves close;
 (c) the same with the int8 FFN impls, and ``fast-int8`` codes == ``fast``
     codes inside the port;
-(d) the same with the B5 attention core and the B4 whole-block Vocos kernel.
+(d) the same with the B5 attention core and the B4 whole-block Vocos kernel;
+(e) parity mode with the f32 attention kernels (``attn_impl`` ``pflash`` or
+    ``flash``) against the JAX codec with the same arguments;
+(f) the precision each mode runs at, and ``f32_precision``'s flags.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from simwhisper_codec_tpu.models import codec as jcodec
+from simwhisper_codec_tpu.models import transformer as jtransformer
 from simwhisper_codec_tpu.ops.quant import quantize_stacked_convnext as jq_convnext
 from simwhisper_codec_tpu.ops.quant import quantize_stacked_ffn as jq_ffn
 from simwhisper_codec_tpu_torch.models import codec as tcodec
@@ -184,3 +189,73 @@ def test_sub_frame_utterance_and_batch_padding(pair):
     assert enc[0].shape == (8, 0) and enc[1].shape == (8, 2)
     dec = tc.decode(enc)["syn_wav_list"]
     assert dec[0].shape == (0,) and dec[1].shape == (2560,)
+
+
+@pytest.mark.parametrize("attn_impl", ["pflash", "flash"])
+def test_parity_kernel_attention_layer_matches_jax(pair, attn_impl):
+    """One f32 encoder layer with the attention kernel's plain version vs the
+    JAX layer with its Pallas kernel in interpret mode, within the layer
+    tolerance of tests/test_flash_attention.py (2e-5) on the valid rows."""
+    params, model = pair
+    rng = np.random.default_rng(14)
+    x = (rng.standard_normal((2, 200, TINY.acoustic_encoder.d_model)) * 0.3).astype(np.float32)
+    lens = np.array([200, 77])
+    layer0 = jax.tree.map(lambda a: a[0], params["encoder"]["layers"])
+    want = jtransformer.transformer_layer(layer0, jnp.asarray(x), None, TINY.acoustic_encoder.encoder_attention_heads,
+                                          precision=HIGHEST, lengths=jnp.asarray(lens), attn_impl=attn_impl)
+    with torch.no_grad():
+        got = model.acoustic_encoder.layers[0](t(x), None, t(lens), attn_impl)
+    for bi, ln in enumerate(lens):
+        np.testing.assert_allclose(n(got)[bi, :ln], np.asarray(want)[bi, :ln], atol=2e-5)
+
+
+@pytest.mark.parametrize("attn_impl", ["pflash", "flash"])
+def test_parity_kernel_attention_codec_matches_jax(pair, utterances, attn_impl):
+    """AudioCodec(mode="parity", attn_impl=...) in both packages: codes equal,
+    waveforms within the parity bound (5e-3)."""
+    params, model = pair
+    jc = jcodec.AudioCodec(TINY, params, batch_size=2, mode="parity", attn_impl=attn_impl)
+    tc = tcodec.AudioCodec(TINY, model, batch_size=2, mode="parity", device="cpu", attn_impl=attn_impl)
+    assert tc._tok_kw["attn_impl"] == tc._detok_kw["attn_impl"] == attn_impl
+    wavs = [utterances[0], utterances[1][: 23 * SR]]  # one chunk, and two
+    jcodes = jc.encode(wavs)["codes_list"]
+    tcodes = tc.encode(wavs)["codes_list"]
+    for a, b in zip(jcodes, tcodes):
+        np.testing.assert_array_equal(b, np.asarray(a))
+    for a, b in zip(jc.decode(jcodes)["syn_wav_list"], tc.decode(tcodes)["syn_wav_list"]):
+        assert b.shape == np.asarray(a).shape
+        assert float(np.abs(b - np.asarray(a)).max()) < 5e-3
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_fast_modes_run_default_precision(pair, precision):
+    """As in the JAX package: the fast modes run at "default" precision
+    (TF32) whatever the caller asks; parity keeps the caller's."""
+    for mode in ("fast", "fast-int8", "fast-int8-full"):
+        assert tcodec.AudioCodec(TINY, pair[1], mode=mode, device="cpu", precision=precision).precision == "default"
+    assert tcodec.AudioCodec(TINY, pair[1], mode="parity", device="cpu", precision=precision).precision == precision
+    assert tcodec.AudioCodec(TINY, pair[1], mode="parity", device="cpu").precision == "highest"
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_f32_precision_flags(precision):
+    """Inside the block TF32 is on only for "default"; cuDNN's deterministic
+    and benchmark flags keep the caller's values; every flag comes back."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, cudnn.enabled)
+    try:
+        for det, bench in ((True, False), (False, True)):
+            matmul.allow_tf32, cudnn.allow_tf32 = precision != "default", precision != "default"
+            cudnn.deterministic, cudnn.benchmark = det, bench
+            before = (matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, cudnn.enabled)
+            with tcodec.f32_precision(precision):
+                tf32 = precision == "default"
+                assert (matmul.allow_tf32, cudnn.allow_tf32) == (tf32, tf32)
+                assert (cudnn.deterministic, cudnn.benchmark) == (det, bench)
+            assert (matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, cudnn.enabled) == before
+            with pytest.raises(KeyError):
+                with tcodec.f32_precision(precision):
+                    raise KeyError("raised inside the block")
+            assert (matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, cudnn.enabled) == before
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, cudnn.enabled = saved

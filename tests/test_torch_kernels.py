@@ -128,7 +128,7 @@ def test_wrappers_raise_on_unsupported_devices():
 
 def test_kernel_sources_and_launch_counts():
     """Every kernel source exists; CPU calls launch nothing and count nothing."""
-    assert set(_cuda.SOURCES) == {"pflash", "ln_ffn", "ln_ffn_int8", "flash", "convnext_dw"}
+    assert set(_cuda.SOURCES) == {"pflash", "ln_ffn", "ln_ffn_int8", "flash", "convnext_dw", "attn_f32"}
     for name in _cuda.SOURCES:
         assert (_cuda.CSRC_DIR / f"{name}.cu").exists()
     _cuda.reset_launch_counts()

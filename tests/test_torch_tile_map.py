@@ -1,10 +1,11 @@
 """Host-side geometry of the attention kernels' TMA tensor maps.
 
 ``ops/flash_attention.py::tile_map`` computes, for each operand of the B1
-and B5 kernels, the dims, byte strides, box and swizzle that the C entry
-points encode into ``CUtensorMap``s.  The kernels themselves run only on the
-GPU (``chip_smoke.py``); what they are handed is checked here, for every
-supported head dim, on the two layouts the codec gives them.
+and B5 kernels (bf16, and the f32 kernels of ``csrc/attn_f32.cu``), the
+dims, byte strides, box and swizzle that the C entry points encode into
+``CUtensorMap``s.  The kernels themselves run only on the GPU
+(``chip_smoke.py``); what they are handed is checked here, for every
+supported head dim and both dtypes, on the two layouts the codec gives them.
 """
 
 import importlib.util
@@ -16,6 +17,7 @@ import torch
 from simwhisper_codec_tpu_torch.ops import flash_attention as tfa
 
 BF16 = torch.bfloat16
+F32 = torch.float32
 
 
 def _profile_tool():
@@ -110,3 +112,58 @@ def test_profile_groups_name_the_kernels():
     assert prof.unmatched_groups(launches, {"B1 pflash": 1.5, "B2 ln_ffn": 0.0}) == ["B2 ln_ffn"]
     assert prof.unmatched_groups(launches, {"B1 pflash": 1.5, "B2 ln_ffn": 2.0}) == []
     assert prof.unmatched_groups({"convnext_dw:512x4096": 24}, {"B2 ln_ffn": 11.0}) == ["B4 convnext_dw"]
+
+
+def test_profile_groups_name_the_f32_kernels():
+    """The f32 instantiations of B1 and B5 have groups of their own, matched
+    by their traced names and by their wrappers' launch-count keys, and no
+    hand kernel's name holds "gemm"."""
+    prof = _profile_tool()
+    names = [
+        ("B1 pflash f32",
+         "void (anonymous namespace)::pflash_f32_kernel<64>(CUtensorMap_st, int const*, float*, int, int)"),
+        ("B5 flash f32", "void (anonymous namespace)::flash_f32_kernel<128>(CUtensorMap_st, CUtensorMap_st, "
+                         "CUtensorMap_st, int const*, float*, int, (anonymous namespace)::Strides)"),
+    ]
+    for group, name in names:
+        assert [g for g, frags in prof.GROUPS.items() if any(f in name for f in frags)] == [group], name
+    keys = {tfa.PFLASH_KERNELS[F32][2]: 24, tfa.FLASH_KERNELS[F32][2]: 24}
+    assert keys == {"pflash_attention_f32": 24, "flash_attention_f32": 24}
+    assert prof.unmatched_groups(keys, {"B1 pflash f32": 30.0}) == ["B5 flash f32"]
+    assert prof.unmatched_groups(keys, {"B1 pflash f32": 30.0, "B5 flash f32": 40.0}) == []
+    assert {"parity-pflash", "parity-flash"} <= set(prof.CONFIGS)
+    source = (tfa._cuda.CSRC_DIR / "attn_f32.cu").read_text()
+    assert "pflash_f32_kernel" in source and "flash_f32_kernel" in source and "gemm" not in source.lower()
+
+
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_tile_map_f32(hd):
+    """f32 operands: a box row is at most 128 bytes, so 32 columns; hd = 64
+    takes two boxes and hd = 128 four, each swizzled 128 B (hd = 16: one
+    64-byte box), on both the packed (B, T, 3D) and the (B, H, T, hd) layouts."""
+    b, t, heads = 2, 203, 3
+    d = heads * hd
+    cols = min(hd, 32)
+    g = tfa.tile_map(torch.empty(b, t, 3 * d, dtype=F32), hd)
+    assert g.dims == (3 * d, t, b)
+    assert g.strides == (3 * d * 4, t * 3 * d * 4)
+    assert g.box == (cols, 64, 1) and g.swizzle == cols * 4 == {16: 64, 32: 128, 64: 128, 128: 128}[hd]
+    assert hd % cols == 0 and d % cols == 0  # q, k and v of every head start on a box
+    assert list(g.as_c()) == [3, 3 * d, t, b, 0, 0, 3 * d * 4, t * 3 * d * 4, 0, 0, cols, 64, 1, 0, 0, cols * 4]
+    packed = torch.empty(b, t, 3, heads, hd, dtype=F32)
+    for x in (packed[:, :, 1].transpose(1, 2), torch.empty(b, t, heads, hd, dtype=F32).transpose(1, 2)):
+        g = tfa.tile_map(x, hd)
+        assert g.dims == (hd, t, heads, b)
+        assert g.strides == tuple(s * 4 for s in (x.stride(2), x.stride(1), x.stride(0)))
+        assert g.box == (cols, 64, 1, 1) and g.swizzle == cols * 4
+    # the B5 output is written by stride: multiples of 4 floats (16 bytes)
+    assert [s.value for s in tfa._strides(torch.empty(b, t, heads, hd, dtype=F32).transpose(1, 2))] == \
+        [t * heads * hd, hd, heads * hd]
+
+
+def test_tile_map_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tfa.tile_map(torch.empty(2, 64, 3 * 64, dtype=torch.float16), 16)
+    f32_odd = torch.empty(2, 40, 3 * 4 * 16 + 1, dtype=F32)[..., 1:]  # base 4 bytes off 16
+    with pytest.raises(ValueError):
+        tfa.tile_map(f32_odd, 16)

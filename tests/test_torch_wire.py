@@ -10,6 +10,7 @@ from simwhisper_codec_tpu.models import codec as jcodec
 from simwhisper_codec_tpu.utils.audio_io import resample as jresample
 from simwhisper_codec_tpu_torch.models import codec as tcodec
 from simwhisper_codec_tpu_torch.utils.audio_io import find_audio_files, load_audio, resample, save_audio, to_pcm16
+from simwhisper_codec_tpu_torch.utils.flac import FlacError
 
 from torch_port import TINY, jax_params, port_model
 
@@ -75,8 +76,10 @@ def test_save_load_audio(tmp_path):
     assert len(load_audio(tmp_path / "i.wav", target_sample_rate=24000)) == 7500
     (tmp_path / "x.flac").write_bytes(b"fLaC")
     assert find_audio_files(str(tmp_path)) == sorted(str(tmp_path / f) for f in ("f.wav", "i.wav", "x.flac"))
-    with pytest.raises(ValueError, match="WAV only"):
+    # a truncated FLAC stream raises the FLAC decoder's own error
+    with pytest.raises(RuntimeError, match="truncated metadata") as err:
         load_audio(tmp_path / "x.flac")
+    assert isinstance(err.value.__cause__, FlacError)
 
 
 @pytest.mark.parametrize("orig_sr", [8000, 44100])

@@ -7,15 +7,16 @@ a batch of 8 x 30 s with ``torch.profiler`` for each requested configuration
 (the serving modes; ``flash-dw``: fast mode with the B5 attention core and
 the B4 whole-block Vocos kernel; ``fast-dw``: fast mode with B4, attention
 as in ``fast``, so that its detokenize differs from fast's in the Vocos
-alone).  Prints per stage: host wall time of an untraced call, summed
+alone; ``parity-pflash`` / ``parity-flash``: parity mode with the f32
+attention kernels).  Prints per stage: host wall time of an untraced call, summed
 device time of the traced call, the device's idle share (1 - device time /
 untraced wall time; one stream, so kernels do not overlap) and the kernels
 that take the most device time, and the device time of these groups: the
-five hand kernels, host-to-device copies, and cuBLAS/cuDNN GEMMs.  The full
+hand kernels, host-to-device copies, and cuBLAS/cuDNN GEMMs.  The full
 table goes to ``<out_dir>/profile_<config>.json``.
 
 Run from the repository root on the machine with the GPU:
-    python3 tools/profile_torch_port.py [--out_dir profiles] [--config all|fast-int8|fast|parity|flash-dw|fast-dw]
+    python3 tools/profile_torch_port.py [--out_dir profiles] [--config all|<one of CONFIGS>]
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ GROUPS = {
                        "::ln_ffn_int8_down_kernel<"),
     "B4 convnext_dw": ("::convnext_dw_rows_kernel<", "::convnext_dw_up_kernel<", "::convnext_dw_down_kernel<"),
     "B5 flash": ("::flash_sm90_kernel<",),
+    "B1 pflash f32": ("::pflash_f32_kernel<",),
+    "B5 flash f32": ("::flash_f32_kernel<",),
     "host-to-device copies": ("Memcpy HtoD",),
     "GEMMs": ("gemm", "nvjet"),
 }
@@ -54,6 +57,8 @@ LAUNCH_GROUPS = {
     "ln_ffn_int8": "B3 ln_ffn_int8",
     "convnext_dw": "B4 convnext_dw",
     "flash_attention": "B5 flash",
+    "pflash_attention_f32": "B1 pflash f32",
+    "flash_attention_f32": "B5 flash f32",
 }
 
 
@@ -72,6 +77,9 @@ CONFIGS = {
     "flash-dw": {"mode": "fast", "attn_impl": "flash", "vocos_impl": "fused-dw"},
     # fast's B1 attention with B4's Vocos: against "fast", only the Vocos differs
     "fast-dw": {"mode": "fast", "vocos_impl": "fused-dw"},
+    # parity with the f32 attention kernels in place of dense attention
+    "parity-pflash": {"mode": "parity", "attn_impl": "pflash"},
+    "parity-flash": {"mode": "parity", "attn_impl": "flash"},
 }
 
 
