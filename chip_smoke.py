@@ -16,7 +16,9 @@ Phases, any failure exits non-zero:
      fast with the flash attention core and the whole-block Vocos kernel
      (``attn_impl="flash", vocos_impl="fused-dw"``) and parity with the f32
      attention kernels (``attn_impl`` ``pflash`` and ``flash``), with launch
-     counts read around each run; the fast modes once more at "highest"
+     counts read around each run, and those two kernels once more against
+     their plain versions on the attention inputs of one 8 x 30 s batch of
+     their run; the fast modes once more at "highest"
      precision (TF32 off) for comparison; one fast-int8 encode + decode on
      the pcm16 wire; then streaming sessions in fast-int8 against the batch
      calls;
@@ -253,8 +255,9 @@ def kernel_phase(torch):
     qkv = randn(b, t, 3 * d)
     qkv[..., :d] *= hd ** -0.5  # q arrives pre-scaled
     lengths = torch.tensor([1500, 1500, 1211, 900, 640, 333, 17, 0], dtype=torch.int32, device=dev)
-    kv = [int(n) if n > 0 else t for n in lengths.tolist()]
-    flops = sum(4.0 * h * t * n * hd for n in kv)
+    # Q K^T and P V over the keys a row attends (4 h t n hd); a length-0 row
+    # averages all T values, which needs only P V (2 h t T hd)
+    flops = sum(4.0 * h * t * n * hd if n > 0 else 2.0 * h * t * t * hd for n in lengths.tolist())
     nbytes = qkv.numel() * 2 + b * t * d * 2 + lengths.numel() * 4
     q, k, v = head_views(qkv, h)
     key_mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
@@ -357,6 +360,11 @@ def attention_f32_rows(torch, randn, fa, shape, lengths, flops):
                                  "simwhisper_codec_tpu_torch/csrc/attn_f32.cu", library=sdpa, iters=10,
                                  full_lengths_ms=lambda: fa.flash_attention(q, k, v, full),
                                  library_full_ms=sdpa_full))
+    full_flops = 4.0 * b * h * t * t * hd
+    for row in rows:  # achieved rate of the 4 B H T kv hd operations (not counting the split's 3x)
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["full_lengths_tflops"] = full_flops / row["full_lengths_ms"] / 1e9
+        log(f"[kernel] {row['name']}: {row['tflops']:.2f} TFLOP/s, full lengths {row['full_lengths_tflops']:.2f}")
     return rows
 
 
@@ -525,6 +533,8 @@ def codec_phase(torch, cfg, model):
         batch_rt = 8 * cfg.max_audio_seconds / ((stage["tokenize_ms"] + stage["detokenize_ms"]) / 1e3)
         results[label] = {"round_trip_x_real_time": sum(UTTERANCE_SECONDS) / wall, "wall_s": wall,
                           "batch8_x_real_time": batch_rt, **stage, "launches": launches}
+        if label in F32_ATTENTION:
+            results[label]["attention_max_abs_err"] = codec_attention_check(torch, codec, F32_ATTENTION[label], batch)
         codes_by_run[label] = enc
         launches_by_run[label] = launches
         log(f"[codec] {label}: {json.dumps(results[label])}")
@@ -540,6 +550,46 @@ def codec_phase(torch, cfg, model):
     pcm16_check(torch, cfg, model, codecs["fast-int8"], utts)
     streaming_check(torch, cfg, codecs["fast-int8"])
     return launches_by_run, codecs["fast-int8"]
+
+
+# parity runs with an f32 attention kernel -> the wrapper that launches it
+F32_ATTENTION = {"parity-pflash": "fused_qkv_attention", "parity-flash": "flash_attention"}
+
+
+def codec_attention_check(torch, codec, fn_name: str, batch) -> float:
+    """The f32 attention kernel against its plain version on the codec's own
+    inputs: every call of one tokenize + detokenize of the 8 x 30 s batch is
+    recorded, then run through both, with the tolerance of phase 2.  Runs
+    after the launch counts are read; returns the max |d| over all calls."""
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+    from simwhisper_codec_tpu_torch.ops import flash_attention as fa
+
+    kernel, plain = getattr(fa, fn_name), getattr(fa, f"{fn_name}_plain")
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    setattr(fa, fn_name, record)
+    try:
+        tok = codec.inference_tokenize(batch, np.full(len(batch), batch.shape[1]))
+        codec.inference_detokenize(tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy())
+    finally:
+        setattr(fa, fn_name, kernel)
+    max_err, excess, finite = 0.0, -float("inf"), True
+    with torch.no_grad(), f32_precision("highest"):
+        for args in calls:
+            got, want = kernel(*args), plain(*args)
+            err = (got - want).abs()
+            max_err = max(max_err, float(err.max()))
+            excess = max(excess, float((err - (1e-5 + 1e-5 * want.abs())).max()))
+            finite = finite and bool(torch.isfinite(got).all())
+    log(f"[kernel] {fn_name} f32 at the codec's inputs ({len(calls)} calls): max_abs_err={max_err:.4g} "
+        f"(tolerance |d| <= 1e-05 + 1e-05*|plain|), worst excess={excess:.4g}, finite={finite}")
+    if not calls or not finite or excess > 0:
+        raise AssertionError(f"{fn_name} (f32) disagrees with its plain version at the codec's inputs")
+    return max_err
 
 
 def stage_times(torch, codec, batch) -> dict:
