@@ -28,7 +28,16 @@ Phases, any failure exits non-zero:
      pcm16 wire) and send them requests, while the batch CLI
      (``python -m simwhisper_codec_tpu_torch.inference``) turns a FLAC and a
      WAV into reconstructions from a saved reference-layout checkpoint;
-  5. print the kernel table, the GPU's name and power limit, and the result.
+  5. train (no hand kernel runs there: the training path is dense f32),
+     each run a child process with deterministic kernels: full-width codec
+     GAN steps through ``python -m simwhisper_codec_tpu_torch.experiments.codec.train``
+     (ms a step, audio seconds trained a GPU second, peak memory), a fresh
+     process resuming from a checkpoint bit for bit, the SIGKILL soak at
+     --smoke width, one GAN step on the card against the CPU, and the
+     trainer and ``AudioCodec(data_parallel=True)`` under a world-size-1
+     NCCL group against runs without it (``--dp_gpus N`` runs only those
+     over N GPUs);
+  6. print the kernel table, the GPU's name and power limit, and the result.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -38,6 +47,7 @@ from __future__ import annotations
 import argparse
 import http.client
 import json
+import os
 import re
 import socket
 import subprocess
@@ -868,13 +878,370 @@ def serve_and_cli_phase(torch, cfg, model):
                     proc.wait()
 
 
+# -- phase 5: training (each run a subprocess: this process initialised cuBLAS
+# before the trainer's deterministic workspace setting could take effect) ----
+
+TRAIN = "simwhisper_codec_tpu_torch.experiments.codec.train"
+SOAK = "simwhisper_codec_tpu_torch.experiments.codec.soak"
+LOSS_KEYS = ("g_loss", "d_loss", "adv", "feat_match", "mel_l1")
+GRAD_TOL = 1.5e-3  # max|d| / max(|ref|, 1e-4) per tensor: the JAX package's multichip tolerance
+
+
+def det_env(**extra) -> dict:
+    return dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", **extra)
+
+
+def start(args, log_path: Path, env=None) -> subprocess.Popen:
+    """A child process with its output in ``log_path``."""
+    with open(log_path, "w") as f:
+        return subprocess.Popen([sys.executable, *args], stdout=f, stderr=subprocess.STDOUT, env=env or det_env())
+
+
+def finish(name: str, proc: subprocess.Popen, log_path: Path, timeout: float) -> str:
+    """Wait for a child; raise with the tail of its output unless it exited 0.
+    Returns its output."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    text = log_path.read_text()
+    if rc != 0:
+        raise RuntimeError(f"{name} failed (rc {rc}):\n{text[-4000:]}")
+    return text
+
+
+def train_log(folder: Path) -> list:
+    return [json.loads(line) for line in (folder / "train_log.jsonl").read_text().splitlines() if line.strip()]
+
+
+def voice(rng, seconds: float, sr: int) -> np.ndarray:
+    """A harmonic voice-like signal with a wandering pitch and a syllable envelope."""
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = rng.uniform(90, 220) * (1.0 + 0.06 * np.sin(2 * np.pi * rng.uniform(1.5, 3.0) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(h * phase + rng.uniform(0, 6)) / h ** rng.uniform(0.5, 0.9) for h in range(1, 24))
+    x *= np.clip(np.sin(2 * np.pi * rng.uniform(1.2, 2.2) * t) * 4.0, 0.0, 1.0)
+    x = x + 0.005 * rng.standard_normal(len(t))
+    return (0.2 * x / np.max(np.abs(x))).astype(np.float32)
+
+
+def training_phase(torch) -> None:
+    """The discriminators timed with deterministic kernels
+    (``discriminator_timing``); full-width codec GAN steps through the
+    trainer (CodecConfig(), seed 0, batch 16 x 2 s, lr 2e-4): steps 1-2 warm
+    up, 3-6 are timed; a fresh process resumes from step 3's checkpoint and
+    must log steps 4-6 bit for bit; then, side by side, the SIGKILL soak at
+    --smoke width, one GAN step on the card against the CPU, and the DP
+    checks under a world-size-1 NCCL group (``dp_phase``)."""
+    from simwhisper_codec_tpu_torch.utils.audio_io import save_audio
+
+    t_phase = time.perf_counter()
+    discriminator_timing(torch)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        data = tmp / "wavs"
+        data.mkdir()
+        rng = np.random.default_rng(11)
+        for i in range(8):
+            save_audio(data / f"v{i}.wav", voice(rng, 4.0, 16000), 16000)
+        common = ["-m", TRAIN, "--data_folder", str(data), "--seed", "0", "--log_every", "1", "--device", "cuda",
+                  "--steps", "6", "--checkpoint_every", "3"]
+        t0 = time.perf_counter()
+        finish("full-width trainer", start(common + ["--output_folder", str(tmp / "A")], tmp / "A.log"), tmp / "A.log",
+               600)
+        wall_a = time.perf_counter() - t0
+        log_a = train_log(tmp / "A")
+        assert [r["step"] for r in log_a] == list(range(1, 7)), log_a
+        for r in log_a:
+            assert all(np.isfinite(r[k]) for k in LOSS_KEYS), r
+        timed = [r["step_ms"] for r in log_a if r["step"] >= 3]
+        ms = float(np.mean(timed))
+        log(f"[train] {gpu_line()}: full width, batch 16 x 2 s: {ms:.1f} ms a step (steps 3-6: "
+            f"{', '.join(f'{v:.1f}' for v in timed)}), {16 * 2.0 / (ms / 1e3):.1f} audio s trained a GPU s, "
+            f"peak max_memory_allocated {log_a[-1]['max_memory_allocated'] / 1e9:.2f} GB")
+        losses = {r["step"]: {k: r[k] for k in LOSS_KEYS} for r in log_a}
+        log(f"[train] losses: {json.dumps(losses)} (run: {wall_a:.1f} s; "
+            + "; ".join(re.sub(r"^.*INFO : ", "", line) for line in (tmp / "A.log").read_text().splitlines()
+                        if "models ready" in line or "saved in" in line) + ")")
+
+        t0 = time.perf_counter()
+        children = {
+            "resume": (start(common + ["--output_folder", str(tmp / "B"),
+                                       "--resume", str(tmp / "A" / "ckpt_0000003.pt")], tmp / "B.log"), tmp / "B.log"),
+            "soak": (start(["-m", SOAK, "--output_folder", str(tmp / "soak"), "--steps", "30", "--timeout", "300",
+                            "--smoke", "--device", "cuda"], tmp / "soak.log"), tmp / "soak.log"),
+            "card-vs-cpu": (start([__file__, "--check", "card-vs-cpu"], tmp / "cvc.log"), tmp / "cvc.log"),
+            "dp": (start([__file__, "--dp_gpus", "1", "--work_dir", str(tmp / "dp")], tmp / "dp.log"), tmp / "dp.log"),
+        }
+        try:
+            walls = {}
+            while len(walls) < len(children) and time.perf_counter() - t0 < 600:
+                for name, (proc, _) in children.items():
+                    if name not in walls and proc.poll() is not None:
+                        walls[name] = round(time.perf_counter() - t0, 1)
+                time.sleep(0.2)
+            outs = {name: finish(name, proc, path, 1) for name, (proc, path) in children.items()}
+        finally:
+            for proc, _ in children.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        log(f"[train] side by side, each child's wall time (s): {json.dumps(walls)}")
+        log_b = train_log(tmp / "B")
+        assert [r["step"] for r in log_b] == [4, 5, 6], log_b
+        for rb in log_b:
+            ra = log_a[rb["step"] - 1]
+            assert all(ra[k] == rb[k] for k in LOSS_KEYS), f"resumed step {rb['step']} differs: {ra} vs {rb}"
+        log(f"[train] full width: a fresh process resumed from step 3's checkpoint logs steps 4-6 bit for bit "
+            f"equal to the continuous run")
+        soak = json.loads((tmp / "soak" / "SOAK_REPORT.json").read_text())
+        assert soak["equivalent"] and "SIGKILL" in outs["soak"], soak
+        log(f"[train] soak (--smoke, 30 steps): SIGKILL at logged step >= {soak['kill_step']}, resumed from step "
+            f"{soak['resume_step']}, {soak['post_resume_points_checked']} post-resume losses bit-equal")
+        for name in ("card-vs-cpu", "dp"):
+            for line in outs[name].splitlines():
+                if line.startswith("[train]"):
+                    log(line)
+    log(f"[train] phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def discriminator_timing(torch, settings=("deterministic",)) -> dict:
+    """Where the trainer spends most: the discriminators' forward + backward at
+    its batch (16 x 2 s, TF32 off), MPD and MSD apart, in each of
+    ``settings`` in turn: "deterministic" (the trainer's: deterministic
+    algorithms, no autotuning) or "autotuned" (cuDNN benchmark mode, which
+    the trainer never uses).  Runs in this process: the workspace setting is
+    set for the deterministic readings' cuBLAS check; the convolutions are
+    cuDNN's."""
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+    from simwhisper_codec_tpu_torch.models.hifigan import Discriminator, init_hifigan
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    flags = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    dev = torch.device("cuda")
+    d = init_hifigan(Discriminator(), torch.Generator().manual_seed(1)).to(dev)
+    x = torch.randn(16, 32000, generator=torch.Generator().manual_seed(3)).mul(0.1).to(dev)
+    pooled = [x]
+    for _ in range(2):
+        pooled.append(torch.nn.functional.avg_pool1d(pooled[-1][:, None], 4, 2, padding=2,
+                                                     count_include_pad=True)[:, 0])
+
+    def fwd_bwd(pairs):
+        def run():
+            d.zero_grad(set_to_none=True)
+            sum(sub(h)[0].square().mean() for sub, h in pairs).backward()
+        return run
+
+    groups = {"mpd": fwd_bwd([(sub, x) for sub in d.mpd]), "msd": fwd_bwd(list(zip(d.msd, pooled)))}
+    times = {}
+    try:
+        with f32_precision("highest"):
+            for setting in settings:
+                torch.use_deterministic_algorithms(setting == "deterministic")
+                torch.backends.cudnn.deterministic = setting == "deterministic"
+                torch.backends.cudnn.benchmark = setting == "autotuned"
+                for name, fn in groups.items():
+                    times.setdefault(f"{name} {setting}", []).append(time_ms(torch, fn, 5))
+    finally:
+        torch.use_deterministic_algorithms(flags[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[1:]
+    del d, x, pooled
+    torch.cuda.empty_cache()
+    log(f"[train] {gpu_line()}: discriminators' forward + backward at 16 x 2 s, TF32 off, ms (settings in "
+        f"turns): " + json.dumps(times))
+    return times
+
+
+def informative_smoke_model(torch):
+    """The trainer's --smoke codec (seed 0) with the latent projection scaled
+    x30 to a unit-variance latent, so its codes span the FSQ levels: at the
+    raw init scale every code is the zero level and the log-spectral loss's
+    gradient is f32 rounding noise (tests/torch_port.py)."""
+    from simwhisper_codec_tpu_torch.experiments.codec.train import SMOKE
+    from simwhisper_codec_tpu_torch.models.codec import init_params
+
+    model = init_params(SMOKE, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.downsample.to_latent.weight.mul_(30.0)
+    return model
+
+
+def card_vs_cpu_check(torch) -> None:
+    """One codec GAN step at --smoke width (batch 2 x 0.5 s) on the CPU and on
+    the card from the same state, TF32 off (the CPU replaying the card's
+    leaky-ReLU branches): losses within rtol 1e-4, every gradient (codec and
+    discriminator) within GRAD_TOL; the card's step twice
+    from the same state gives equal bits (deterministic kernels, no hand
+    kernel launched)."""
+    import copy
+
+    from simwhisper_codec_tpu_torch.experiments.codec.train import SMOKE, segment_mel, set_determinism
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+    from simwhisper_codec_tpu_torch.models import hifigan
+    from simwhisper_codec_tpu_torch.models.hifigan import Discriminator, init_hifigan, lrelu
+    from simwhisper_codec_tpu_torch.ops import _cuda
+    from simwhisper_codec_tpu_torch.ops.mel import log_mel
+    from simwhisper_codec_tpu_torch.train.codec_gan import codec_gan_step, init_codec_gan_state
+    from simwhisper_codec_tpu_torch.train.gan import make_mel_loss_constants
+
+    set_determinism()
+    model = informative_smoke_model(torch)
+    disc = init_hifigan(Discriminator(), torch.Generator().manual_seed(1))
+    branches, flips = [], [0, 0]
+
+    def recording_lrelu(x, slope):
+        keep = x >= 0
+        branches.append(keep.cpu())
+        return torch.where(keep, x, slope * x)
+
+    def replaying_lrelu(x, slope):
+        keep = branches.pop(0).to(x.device)
+        flips[0] += int((keep != (x >= 0)).sum())
+        flips[1] += keep.numel()
+        return torch.where(keep, x, slope * x)
+    audio = torch.from_numpy(np.stack([voice(np.random.default_rng(s), 0.5, 16000) for s in (1, 2)]))
+    with torch.no_grad(), f32_precision("highest"):
+        mel = log_mel(segment_mel(SMOKE, audio.shape[1]), audio)
+
+    def step(device):
+        state = init_codec_gan_state(copy.deepcopy(model).to(device), copy.deepcopy(disc).to(device))
+        batch = {"mel": mel.to(device), "audio": audio.to(device),
+                 "mel_lens": torch.full((2,), mel.shape[1], dtype=torch.int64, device=device)}
+        metrics = codec_gan_step(state, batch, make_mel_loss_constants().to(device))
+        grads = {f"codec.{k}": p.grad.cpu() for k, p in state.model.named_parameters() if p.grad is not None}
+        grads.update({f"disc.{k}": p.grad.cpu() for k, p in state.discriminator.named_parameters()})
+        return metrics, grads
+
+    # A leaky ReLU's gradient jumps at 0, so a pre-activation within f32
+    # rounding of 0 can take the other branch on the other device and move a
+    # bias gradient by ~3e-3 of its tensor's max by itself.  The CPU step
+    # therefore replays the card's branch decisions, in call order, and the
+    # count of decisions it would have taken otherwise is reported.
+    _cuda.reset_launch_counts()
+    gpu_m, gpu_g = step(torch.device("cuda"))
+    again_m, again_g = step(torch.device("cuda"))
+    assert not _cuda.launch_counts, f"the training step launched hand kernels: {_cuda.launch_counts}"
+    hifigan.lrelu = recording_lrelu
+    try:
+        rec_m, _ = step(torch.device("cuda"))
+        hifigan.lrelu = replaying_lrelu
+        cpu_m, cpu_g = step(torch.device("cpu"))
+    finally:
+        hifigan.lrelu = lrelu
+    assert rec_m == gpu_m and not branches, "the replayed branches do not match the step's calls"
+    assert gpu_m == again_m and all(torch.equal(gpu_g[k], again_g[k]) for k in gpu_g), \
+        "the card's step is not deterministic"
+    for k in LOSS_KEYS:
+        assert abs(gpu_m[k] - cpu_m[k]) <= 1e-4 * abs(cpu_m[k]), (k, gpu_m[k], cpu_m[k])
+    errs = {k: float((gpu_g[k] - cpu_g[k]).abs().max()) / max(float(cpu_g[k].abs().max()), 1e-4) for k in cpu_g}
+    worst = max(errs, key=errs.get)
+    log(f"[train] card vs CPU, one GAN step at --smoke width, TF32 off: losses {json.dumps(gpu_m)} vs "
+        f"{json.dumps(cpu_m)} (rtol 1e-4); worst gradient {worst} {errs[worst]:.3g} over {len(errs)} tensors "
+        f"(tolerance {GRAD_TOL}); the CPU replayed the card's leaky-ReLU branches, {flips[0]} of {flips[1]} "
+        f"differing from its own; the card's step repeated bit for bit; no hand kernel launched")
+    if errs[worst] > GRAD_TOL:
+        raise AssertionError(f"gradient {worst} differs between the card and the CPU by {errs[worst]:.3g}")
+
+
+def dp_codec_check(torch, out: str) -> None:
+    """Run by every rank of a torchrun group: ``AudioCodec(data_parallel=True)``
+    against ``AudioCodec()`` at --smoke width (parity, the card) on three
+    utterances (a batch of 3 padded to a multiple of the world size)."""
+    import copy
+
+    from simwhisper_codec_tpu_torch.experiments.codec.train import SMOKE, set_determinism
+    from simwhisper_codec_tpu_torch.models.codec import AudioCodec
+    from simwhisper_codec_tpu_torch.parallel import dist
+
+    set_determinism()
+    ctx = dist.init_from_env(torch.device("cuda"))
+    device = dist.local_device(ctx, torch.device("cuda"))
+    model = informative_smoke_model(torch)
+    rng = np.random.default_rng(1)
+    wavs = [(rng.standard_normal(n) * 0.1).astype(np.float32) for n in (40000, 33000, 21000)]
+    single = AudioCodec(SMOKE, copy.deepcopy(model), device=device)
+    dpc = AudioCodec(SMOKE, copy.deepcopy(model), device=device, data_parallel=True)
+    enc_s, enc_d = single.encode(wavs)["codes_list"], dpc.encode(wavs)["codes_list"]
+    dec_s, dec_d = single.decode(enc_s)["syn_wav_list"], dpc.decode(enc_s)["syn_wav_list"]
+    if ctx.rank == 0:
+        Path(out).write_text(json.dumps({
+            "world_size": ctx.world_size, "codes_equal": all(np.array_equal(a, b) for a, b in zip(enc_s, enc_d)),
+            "waves_equal": all(np.array_equal(a, b) for a, b in zip(dec_s, dec_d)),
+            "wave_max_abs_diff": max(float(np.abs(a - b).max()) for a, b in zip(dec_s, dec_d))}))
+    torch.distributed.destroy_process_group()
+
+
+def dp_worker(torch, work: Path) -> None:
+    """One rank of ``dp_phase``'s torchrun group: rank 0 first runs the trainer
+    (--smoke, batch 4, 3 steps) without --data_parallel, then every rank runs
+    it with --data_parallel, then ``dp_codec_check``."""
+    from simwhisper_codec_tpu_torch.experiments.codec.train import main as train_main
+    from simwhisper_codec_tpu_torch.parallel import dist
+
+    dist.init_from_env(torch.device("cuda"))  # the group outlives both trainer runs
+    common = ["--smoke", "--device", "cuda", "--steps", "3", "--log_every", "1", "--batch_size", "4", "--seed", "3"]
+    if int(os.environ["RANK"]) == 0:
+        train_main(common + ["--output_folder", str(work / "single")])
+    train_main(common + ["--data_parallel", "--output_folder", str(work / "dp")])
+    dp_codec_check(torch, str(work / "codec.json"))
+
+
+def dp_phase(torch, n_gpus: int, work: Path) -> None:
+    """``dp_worker`` over ``n_gpus`` ranks (torchrun, NCCL).  One rank: every
+    loss and the codec's codes and waveforms bit-equal to the runs without
+    DP; more: losses within rtol 1e-4, codes equal, waveforms within 1e-5."""
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = start(["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n_gpus), __file__,
+                  "--check", "dp", "--work_dir", str(work)], work / "dp.log")
+    finish("DP workers", proc, work / "dp.log", 600)
+    log_s, log_d = train_log(work / "single"), train_log(work / "dp")
+    assert [r["step"] for r in log_s] == [r["step"] for r in log_d] == [1, 2, 3]
+    worst = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12) for a, b in zip(log_s, log_d) for k in LOSS_KEYS)
+    res = json.loads((work / "codec.json").read_text())
+    assert res["world_size"] == n_gpus and res["codes_equal"], res
+    if n_gpus == 1:
+        assert worst == 0.0 and res["waves_equal"], (worst, res)
+    else:
+        assert worst <= 1e-4 and res["wave_max_abs_diff"] <= 1e-5, (worst, res)
+    log(f"[train] {gpu_line()} (x{torch.cuda.device_count()}): DP over {n_gpus} GPU(s) (NCCL, torchrun): "
+        f"trainer losses at steps 1-3 worst relative difference "
+        f"{worst:.3g} against one process; AudioCodec(data_parallel=True) codes equal, waveforms "
+        f"{'bit-equal' if res['waves_equal'] else 'max |d| ' + format(res['wave_max_abs_diff'], '.3g')} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dp_gpus", type=int, default=0,
+                    help="run only the data-parallel checks (dp_phase) over this many GPUs")
+    ap.add_argument("--discriminator_timing", action="store_true",
+                    help="run only discriminator_timing, deterministic kernels against cuDNN autotuning")
+    ap.add_argument("--check", choices=("card-vs-cpu", "dp"), default=None,
+                    help="one check of phase 5, as the full run starts it in a child process")
+    ap.add_argument("--work_dir", default=None, help="scratch directory of --dp_gpus / --check dp")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.check == "card-vs-cpu":
+        card_vs_cpu_check(torch)
+        return 0
+    if args.check == "dp":
+        dp_worker(torch, Path(args.work_dir))
+        return 0
+    if args.discriminator_timing:
+        discriminator_timing(torch, ("deterministic", "autotuned", "autotuned", "deterministic"))
+        return 0
+    if args.dp_gpus:
+        with tempfile.TemporaryDirectory() as tmp:
+            dp_phase(torch, args.dp_gpus, Path(args.work_dir or tmp))
+        return 0
     from simwhisper_codec_tpu_torch.config import load_config
     from simwhisper_codec_tpu_torch.models.codec import init_params
     from simwhisper_codec_tpu_torch.ops import _cuda
@@ -897,6 +1264,9 @@ def main() -> int:
         row["launches_by_run"] = {r: launches[r].get(row["name"], 0) for r in launches}
     corpus_phase(torch, cfg, serving_codec)
     serve_and_cli_phase(torch, cfg, model)
+    del model, serving_codec
+    torch.cuda.empty_cache()
+    training_phase(torch)
     print(gpu_line())  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

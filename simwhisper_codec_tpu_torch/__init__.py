@@ -5,7 +5,9 @@ trip (log-mel -> encoder -> frame-stack down -> GroupFSQ -> codes -> FSQ^-1 ->
 frame-stack up -> decoder -> Vocos -> ISTFT) with the same public layouts
 (channels-last (B, T, C) activations, (G, B, T) int32 codes), and hand-written
 CUDA C++ kernels (``csrc/``) for the attention core and the fused LN-FFN
-chains of the fast serving modes.
+chains of the fast serving modes; and the codec GAN trainer (``train/``,
+``experiments/codec/``) with data parallelism over ``torch.distributed``
+(``parallel/``).
 
 This package imports ``torch`` and numpy only.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.

@@ -7,9 +7,12 @@ is a torch device (default ``cuda``); ``--precision default`` allows TF32
 for the float32 matmuls and convolutions of parity mode (the counterpart of
 ``Precision.DEFAULT``; the fast modes always run it).  Inputs are WAV, FLAC
 or MP3 files, read a batch at a time through the native loader
-(``utils/native_loader.py``), as the JAX CLI reads them.
+(``utils/native_loader.py``), as the JAX CLI reads them.  With
+``--data_parallel`` under ``torchrun`` each rank runs its share of every
+batch on its own GPU and rank 0 writes the outputs.
 
 Run:  python -m simwhisper_codec_tpu_torch.inference --input_dir in --output_dir out
+      torchrun --nproc_per_node N -m simwhisper_codec_tpu_torch.inference --data_parallel ...
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ import argparse
 import logging
 import os
 
+import torch
+
 from simwhisper_codec_tpu_torch.models.codec import MODES, PRECISIONS, AudioCodec
+from simwhisper_codec_tpu_torch.parallel import dist
 from simwhisper_codec_tpu_torch.utils.audio_io import find_audio_files, save_audio, set_logging
 from simwhisper_codec_tpu_torch.utils.native_loader import load_audio_batch
 
@@ -38,11 +44,16 @@ def main(argv=None) -> None:
                              "(TF32); the fast modes always run default")
     parser.add_argument("--mode", type=str, default="parity", choices=MODES,
                         help="parity: f32 bit-exact codes; fast: bf16 serving path")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="split each batch over the ranks of torchrun's process group (one GPU each)")
     args = parser.parse_args(argv)
 
+    device = torch.device(args.device)
+    ctx = dist.init_from_env(device) if args.data_parallel else dist.DistContext()
     generator = AudioCodec.load_from_checkpoint(
         config_path=args.config_path, ckpt_path=args.checkpoint_path, batch_size=args.batch_size,
-        precision=args.precision, mode=args.mode, device=args.device,
+        precision=args.precision, mode=args.mode, device=dist.local_device(ctx, device),
+        data_parallel=args.data_parallel,
     )
     audio_paths = find_audio_files(input_dir=args.input_dir)
     os.makedirs(args.output_dir, exist_ok=True)
@@ -63,6 +74,8 @@ def main(argv=None) -> None:
         syn_wav_list = generator.decode(codes_list, overlap_seconds=args.overlap_seconds)["syn_wav_list"]
         logging.info("Decoding done, waveform lengths: %s", [len(w) for w in syn_wav_list])
 
+        if ctx.rank != 0:
+            continue
         for path, syn_wav in zip(batch_paths, syn_wav_list):
             output_path = os.path.join(args.output_dir, os.path.splitext(os.path.basename(path))[0] + ".wav")
             save_audio(output_path, syn_wav, sample_rate=generator.output_sample_rate)

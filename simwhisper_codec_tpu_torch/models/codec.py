@@ -29,7 +29,11 @@ JAX package's fast modes do.
 The ``wire`` is the host <-> device waveform format: ``float32``, or
 ``pcm16``, which ships int16 (dequantised on the device) and brings decoded
 waveforms home as int16 quantised on the device by the ``save_audio``
-formula: half the bytes each way.
+formula: half the bytes each way.  ``data_parallel`` splits each batch over
+the ranks of a ``torch.distributed`` group and gathers the result.
+
+``training_forward`` is the trainer's forward (``train/``): dense f32, the
+FSQ round straight-through, mel features in, no virtual edge.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from simwhisper_codec_tpu_torch.models import sampling, transformer, vocos
 from simwhisper_codec_tpu_torch.ops import fsq, mel
 from simwhisper_codec_tpu_torch.ops.quant import quantize_stacked_convnext, quantize_stacked_ffn
 from simwhisper_codec_tpu_torch.ops.snake import AliasFreeConstants
+from simwhisper_codec_tpu_torch.parallel import dist as dist_ctx
 from simwhisper_codec_tpu_torch.utils.audio_io import to_pcm16
 
 logger = logging.getLogger(__name__)
@@ -125,6 +130,24 @@ def detokenize(model: SimWhisperCodec, codes: torch.Tensor, code_lengths: torch.
         frame_valid = int(code_frame_valid) * cfg.upsample.stack_factor * cfg.acoustic_decoder.stride_size
     audio, out_len = model.vocos(dec, dec_len, frame_valid, vocos_impl)
     return {"y": audio, "output_length": out_len}
+
+
+def training_forward(model: SimWhisperCodec, mel_features: torch.Tensor, mel_lens: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+    """Training forward (reference model.py:112-165): mel (B, T_mel, n_mels)
+    -> encoder -> frame-stack down -> FSQ (straight-through round) -> up ->
+    decoder -> Vocos, all dense f32; run it under ``f32_precision("highest")``.
+    Returns {"reconstructed_audio": (B, T_mel * hop), "audio_lengths": (B,),
+    "codes": (G, B, T_code)}.  The encoder is frozen by the optimizer (it is
+    left out of it), not here."""
+    c = model.consts
+    enc, enc_len = model.acoustic_encoder(mel_features, mel_lens)
+    z, z_len = model.downsample(c.af, enc, enc_len)
+    zq, codes = fsq.group_fsq_forward(c.fsq, z, z_len, ste=True)
+    up, up_len = model.upsample(c.af, zq, z_len)
+    dec, dec_len = model.acoustic_decoder(up, up_len)
+    audio, out_len = model.vocos(dec, dec_len)
+    return {"reconstructed_audio": audio, "audio_lengths": out_len, "codes": codes}
 
 
 def fast_mode_settings() -> dict:
@@ -205,7 +228,8 @@ class AudioCodec:
 
     def __init__(self, cfg: CodecConfig, model: SimWhisperCodec, batch_size: int = 8,
                  mode: str = "parity", device=None, attn_impl: Optional[str] = None,
-                 vocos_impl: Optional[str] = None, wire: str = "float32", precision: str = "highest"):
+                 vocos_impl: Optional[str] = None, wire: str = "float32", precision: str = "highest",
+                 data_parallel: bool = False):
         """``model`` is moved to ``device`` (default ``cuda``); int8 modes add
         the quantised weights to it as non-persistent buffers.
 
@@ -214,7 +238,11 @@ class AudioCodec:
         ``wire``: ``float32`` or ``pcm16`` (see the module docstring).
         ``precision``: ``highest`` (no TF32) or ``default`` (TF32 for the
         float32 matmuls and convolutions); parity mode takes the caller's,
-        the fast modes always run ``default``, as the JAX package's do."""
+        the fast modes always run ``default``, as the JAX package's do.
+        ``data_parallel``: in an initialised ``torch.distributed`` group, each
+        call pads its batch to a multiple of the world size, runs this rank's
+        rows and all-gathers the result, so every rank returns the whole
+        batch, as one process would (the JAX package's ``data`` mesh axis)."""
         if wire not in WIRES:
             raise ValueError(f"wire must be one of {WIRES}, got {wire!r}")
         if precision not in PRECISIONS:
@@ -235,6 +263,7 @@ class AudioCodec:
                 quantize_stacked_ffn(self.model.acoustic_encoder.layers)
             quantize_stacked_convnext(self.model.vocos.backbone.convnext)
         self.batch_size = batch_size
+        self._dist = dist_ctx.current() if data_parallel else dist_ctx.DistContext()
         self.input_sample_rate = cfg.input_sample_rate
         self.output_sample_rate = cfg.output_sample_rate
         self.max_audio_seconds = cfg.max_audio_seconds
@@ -245,7 +274,9 @@ class AudioCodec:
     # -- single-chunk paths --------------------------------------------------
 
     def _pad_batch_dim(self, b: int) -> int:
-        return self.batch_size if b < self.batch_size else b
+        """At least ``batch_size`` rows, rounded up to a multiple of the world size."""
+        world = self._dist.world_size
+        return -(-max(b, self.batch_size) // world) * world
 
     @torch.no_grad()
     def inference_tokenize(self, wav: np.ndarray, input_lengths: np.ndarray) -> dict:
@@ -271,12 +302,14 @@ class AudioCodec:
         if bp != b:
             wav = np.pad(wav, ((0, bp - b), (0, 0)))
             input_lengths = np.pad(input_lengths, (0, bp - b))
-        wav_t = torch.from_numpy(np.ascontiguousarray(wav)).to(self.device)
+        rows = self._dist.rows(bp)
+        wav_t = torch.from_numpy(np.ascontiguousarray(wav[rows])).to(self.device)
         if wav_t.dtype == torch.int16:
             wav_t = F.pad(wav_t.to(torch.float32) * (1.0 / 32768.0), (0, n - target))
-        len_t = torch.from_numpy(input_lengths.astype(np.int64)).to(self.device)
+        len_t = torch.from_numpy(input_lengths[rows].astype(np.int64)).to(self.device)
         with f32_precision(self.precision):
             out = tokenize(self.model, wav_t, len_t, **self._tok_kw)
+        out = {k: dist_ctx.all_gather_rows(self._dist, v, 1 if k == "codes" else 0) for k, v in out.items()}
         if bp != b:  # drop batch-padding rows
             out = {"zq": out["zq"][:b], "codes": out["codes"][:, :b], "codes_lengths": out["codes_lengths"][:b]}
         return out
@@ -298,10 +331,12 @@ class AudioCodec:
         if bp != b:
             codes = np.pad(codes, ((0, 0), (0, bp - b), (0, 0)))
             codes_lengths = np.pad(codes_lengths, (0, bp - b))
-        codes_t = torch.from_numpy(np.ascontiguousarray(codes, np.int32)).to(self.device)
-        len_t = torch.from_numpy(codes_lengths.astype(np.int64)).to(self.device)
+        rows = self._dist.rows(bp)
+        codes_t = torch.from_numpy(np.ascontiguousarray(codes[:, rows], np.int32)).to(self.device)
+        len_t = torch.from_numpy(codes_lengths[rows].astype(np.int64)).to(self.device)
         with f32_precision(self.precision):
             out = detokenize(self.model, codes_t, len_t, width, **self._detok_kw)
+        out = {k: dist_ctx.all_gather_rows(self._dist, v) for k, v in out.items()}
         if self.wire == "pcm16":
             y = torch.clamp(out["y"].to(torch.float32) * 32768.0, -32768.0, 32767.0).to(torch.int16)
             out = dict(out, y=y[:, :out_samples] if out_samples is not None else y)

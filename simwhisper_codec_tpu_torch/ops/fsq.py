@@ -7,6 +7,10 @@ base-weighted sum over a (G, d) reshape.  Indices are bit-exact with the JAX
 package: both round half to even and round before the int cast.
 
 Layout: latents (B, T, D) channels-last, indices (G, B, T) int32.
+
+The training forward rounds with a straight-through estimator
+(``ste_round``: the forward is ``round``, the gradient the identity); the
+inference paths round with ``torch.round``.
 """
 
 from __future__ import annotations
@@ -46,9 +50,18 @@ def compress(consts: FSQConstants, x: torch.Tensor) -> torch.Tensor:
     return consts.scale.to(x.dtype) * torch.tanh(x + consts.shift.to(x.dtype)) - consts.offset.to(x.dtype)
 
 
-def inputs_to_codes(consts: FSQConstants, x: torch.Tensor) -> torch.Tensor:
-    """Continuous latent -> quantized codes in [-1, 1] (round half to even)."""
-    return torch.round(compress(consts, x)) / consts.half_levels.to(x.dtype)
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even with a straight-through gradient (reference
+    quantizer.py:121-127): ``x + (round(x) - x)`` equals ``round(x)`` exactly
+    (|round(x) - x| <= 0.5 is exact in float), and its gradient is 1."""
+    return x + (torch.round(x) - x).detach()
+
+
+def inputs_to_codes(consts: FSQConstants, x: torch.Tensor, ste: bool = False) -> torch.Tensor:
+    """Continuous latent -> quantized codes in [-1, 1] (round half to even;
+    straight-through gradient with ``ste``)."""
+    c = compress(consts, x)
+    return (ste_round(c) if ste else torch.round(c)) / consts.half_levels.to(x.dtype)
 
 
 def codes_to_indices(consts: FSQConstants, codes: torch.Tensor) -> torch.Tensor:
@@ -78,10 +91,11 @@ def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
 
 
 def group_fsq_forward(
-    consts: FSQConstants, x: torch.Tensor, lengths: Optional[torch.Tensor] = None
+    consts: FSQConstants, x: torch.Tensor, lengths: Optional[torch.Tensor] = None, ste: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Latent (B, T, D) -> (codes (B, T, D), indices (G, B, T) int32), zero beyond lengths."""
-    codes = inputs_to_codes(consts, x)
+    """Latent (B, T, D) -> (codes (B, T, D), indices (G, B, T) int32), zero beyond
+    lengths; ``ste`` (the training forward) passes the gradient straight through the round."""
+    codes = inputs_to_codes(consts, x, ste)
     indices = codes_to_indices(consts, codes)  # (B, T, G)
     if lengths is not None:
         mask = length_mask(lengths, x.shape[1])[..., None]

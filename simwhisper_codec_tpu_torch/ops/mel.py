@@ -13,7 +13,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from simwhisper_codec_tpu_torch.config import FeatureExtractorConfig
 
@@ -80,11 +79,24 @@ class MelConstants(nn.Module):
         self.n_mels = cfg.feature_size
 
 
+def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """``F.pad(x, (left, right), mode="reflect")`` along the last dim, bit for
+    bit, built from ``flip`` and ``cat``: their backward is deterministic on
+    CUDA, where reflect padding's backward accumulates with atomics (and
+    raises under ``torch.use_deterministic_algorithms``)."""
+    if max(left, right) >= x.shape[-1]:
+        raise ValueError(f"reflect pad ({left}, {right}) needs more samples than {x.shape[-1]}")
+    parts = [x]
+    if left:
+        parts.insert(0, x[..., 1: left + 1].flip(-1))
+    if right:
+        parts.append(x[..., -right - 1: -1].flip(-1))
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else x
+
+
 def frame_signal(x: torch.Tensor, n_fft: int, hop: int, n_frames: int) -> torch.Tensor:
     """(B, S) -> (B, n_frames, n_fft) centred frames with reflect padding."""
-    pad = n_fft // 2
-    x = F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0]
-    return x.unfold(1, n_fft, hop)[:, :n_frames]
+    return reflect_pad(x, n_fft // 2, n_fft // 2).unfold(1, n_fft, hop)[:, :n_frames]
 
 
 def log_mel(consts: MelConstants, wav: torch.Tensor) -> torch.Tensor:

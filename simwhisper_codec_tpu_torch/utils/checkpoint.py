@@ -1,4 +1,5 @@
-"""Weights import: the JAX package's parameter tree and the reference ``.pt``.
+"""Weights import (the JAX package's trees, the reference ``.pt``) and the
+trainer's full-state checkpoints.
 
 The port's modules are named after the reference's state-dict keys, so
 ``SimWhisperCodec.state_dict()`` is itself a reference-layout state dict:
@@ -10,11 +11,21 @@ The port's modules are named after the reference's state-dict keys, so
    folds weight norm (w = g * v / ||v|| per output channel; old
    ``weight_g``/``weight_v`` or new ``parametrizations`` keys) and loads it
    with ``load_state_dict``.  Reference buffers (filters, windows, FSQ
-   levels) are dropped: the port recomputes them.
+   levels) are dropped: the port recomputes them;
+ - ``generator_state_from_jax`` / ``discriminator_state_from_jax`` map the
+   JAX HiFi-GAN trees (weight-normed ``v`` (W, I, O) and ``g``; spectral-
+   normed ``w`` with its ``u`` / ``v_vec``) to ``models.hifigan``'s state
+   dicts: convs to (O, I, W), transposed convs to (I, O, W), 2-D convs from
+   (H, W, I, O) to (O, I, H, W);
+ - ``save_training_state`` / ``load_training_state`` are the counterpart of
+   ``save_orbax`` / ``load_orbax`` for the trainer's full state.  A save
+   writes a temporary file and renames it over the target, so a process
+   killed mid-save never leaves a checkpoint that looks complete.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping
 
 import numpy as np
@@ -120,6 +131,61 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     _flatten("", nested, out)
     return out
+
+
+def _hifigan_conv(p: Mapping, perm) -> dict:
+    """One HiFi-GAN conv: spectral-normed (``u`` in p) or weight-normed; ``perm``
+    maps the JAX layout to torch's."""
+    if "u" in p:
+        return {"w": _t(np.transpose(np.asarray(p["w"]), perm)), "b": _t(p["b"]), "u": _t(p["u"]),
+                "v_vec": _t(p["v_vec"])}
+    return {"v": _t(np.transpose(np.asarray(p["v"]), perm)), "g": _t(np.transpose(np.asarray(p["g"]), perm)),
+            "b": _t(p["b"])}
+
+
+_CONV, _DECONV, _CONV2D = (2, 1, 0), (1, 2, 0), (3, 2, 0, 1)
+
+
+def generator_state_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``init_generator`` tree -> ``models.hifigan.Generator`` state dict."""
+    nested = {"conv_pre": _hifigan_conv(tree["conv_pre"], _CONV),
+              "ups": {str(i): _hifigan_conv(u, _DECONV) for i, u in enumerate(tree["ups"])},
+              "resblocks": {str(i): {str(j): {k: {str(n): _hifigan_conv(c, _CONV) for n, c in enumerate(rb[k])}
+                                               for k in ("convs1", "convs2")}
+                                     for j, rb in enumerate(stage)}
+                            for i, stage in enumerate(tree["resblocks"])},
+              "conv_post": _hifigan_conv(tree["conv_post"], _CONV)}
+    out: Dict[str, torch.Tensor] = {}
+    _flatten("", nested, out)
+    return out
+
+
+def discriminator_state_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``init_discriminator`` tree -> ``models.hifigan.Discriminator`` state dict."""
+    def sub(d, perm):
+        return {"convs": {str(i): _hifigan_conv(c, perm) for i, c in enumerate(d["convs"])},
+                "conv_post": _hifigan_conv(d["conv_post"], perm)}
+
+    nested = {"mpd": {str(i): sub(d, _CONV2D) for i, d in enumerate(tree["mpd"])},
+              "msd": {str(i): sub(d, _CONV) for i, d in enumerate(tree["msd"])}}
+    out: Dict[str, torch.Tensor] = {}
+    _flatten("", nested, out)
+    return out
+
+
+def save_training_state(path: str, state: dict) -> None:
+    """``torch.save`` to ``path + ".tmp"``, flushed to disk, then renamed over ``path``."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        torch.save(state, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def load_training_state(path: str, map_location=None) -> dict:
+    """A state written by ``save_training_state``."""
+    return torch.load(path, map_location=map_location, weights_only=True)
 
 
 def _fold_weight_norm(sd: Mapping[str, torch.Tensor], prefix: str):
