@@ -24,10 +24,17 @@ Phases, any failure exits non-zero:
      calls;
   4. evaluate a small corpus (FLAC, WAV, MP3 where the system libraries
      exist, one corrupt file) through ``evaluate_corpus`` and the native
-     loader; start the port's HTTP server twice (fast-int8; float32 and
-     pcm16 wire) and send them requests, while the batch CLI
-     (``python -m simwhisper_codec_tpu_torch.inference``) turns a FLAC and a
-     WAV into reconstructions from a saved reference-layout checkpoint;
+     loader; the quality evaluation (``eval_phase``): synthetic tower
+     weights at the published widths, ``eval_corpus``'s full report on 8
+     synthetic FLAC utterances through the serving codec (host metrics, code
+     statistics, the HuBERT-large CTC, UTMOS and WavLM-large + ECAPA towers,
+     each tower's ms per audio second and peak memory), each tower on the
+     card against the CPU and bucket-padded against exact length, the
+     trainer's held-out probe; start the port's HTTP server twice
+     (fast-int8; float32 and pcm16 wire) and send them requests, while the
+     batch CLI (``python -m simwhisper_codec_tpu_torch.inference``) turns a
+     FLAC and a WAV into reconstructions from a saved reference-layout
+     checkpoint;
   5. train (no hand kernel runs there: the training path is dense f32),
      each run a child process with deterministic kernels: full-width codec
      GAN steps through ``python -m simwhisper_codec_tpu_torch.experiments.codec.train``
@@ -844,6 +851,151 @@ def corpus_phase(torch, cfg, codec):
         f"{stats['bitrate_bps']} bps = bits_per_frame x 12.5 Hz ({want_bps:.2f})")
 
 
+EVAL_FILES, EVAL_SECONDS = 8, (4.0, 8.0)
+TOWER_TOL = 1e-4  # card vs CPU, and padded vs exact length: max |d| <= TOL * max(max |ref|, 1)
+
+
+def tower_err(got, want) -> float:
+    """max |got - want| over max(max |want|, 1)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / max(float(np.max(np.abs(want))), 1.0))
+
+
+def tower_outputs(torch, weights: Path, device: str, wav: np.ndarray) -> dict:
+    """Each full-width tower once on ``device`` (TF32 off): the CTC logits of
+    the valid frames and the transcript, the UTMOS score, the speaker
+    embedding; each padded to its power-of-two-second bucket."""
+    from simwhisper_codec_tpu_torch.eval.speaker import SpeakerEmbedder
+    from simwhisper_codec_tpu_torch.eval.utmos import UTMOSScorer
+    from simwhisper_codec_tpu_torch.eval.wer import CTCTranscriber
+
+    asr = CTCTranscriber(str(weights / "hubert_ctc"), device=device)
+    logits = asr.logits(wav).cpu().numpy()
+    out = {"ctc_logits": logits, "transcript": asr.transcribe(wav), "asr": asr}
+    out["utmos"] = UTMOSScorer(str(weights / "utmos22_strong.ckpt"), device=device)
+    out["utmos_score"] = out["utmos"].score(wav)
+    out["speaker"] = SpeakerEmbedder.from_checkpoint(str(weights / "wavlm_large_finetune.pth"), device=device)
+    out["embedding"] = out["speaker"].embed(wav)
+    return out
+
+
+def padded_vs_exact(torch, towers: dict, wav: np.ndarray) -> dict:
+    """On the card: each tower's bucket-padded run (masked statistics)
+    against an unpadded run of the exact length, on the valid frames."""
+    from simwhisper_codec_tpu_torch.eval.speaker import ecapa_forward, wavlm_weighted_features
+    from simwhisper_codec_tpu_torch.eval.utmos import utmos_forward
+    from simwhisper_codec_tpu_torch.eval.wer import ctc_logits
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+
+    asr, utmos, spk = towers["asr"], towers["utmos"], towers["speaker"]
+    norm = (wav - wav.mean()) / np.sqrt(wav.var() + 1e-7)
+    x = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)[None]).cuda()  # noqa: E731
+    with torch.no_grad(), f32_precision("highest"):
+        exact_logits = ctc_logits(asr.cfg, asr.params, x(norm))[0][0].cpu().numpy()
+        exact_score = float(utmos_forward(utmos.cfg, utmos.params, x(wav))[0])
+        feats, _ = wavlm_weighted_features(spk.ssl_cfg, spk.wavlm_params, spk.feature_weight, x(wav))
+        exact_emb = ecapa_forward(spk.params, feats)[0].cpu().numpy()
+    return {"ctc_logits": tower_err(asr.logits(wav).cpu().numpy(), exact_logits),
+            "utmos_score": tower_err(utmos.score(wav), exact_score),
+            "embedding": tower_err(spk.embed(wav), exact_emb)}
+
+
+def eval_phase(torch, cfg, codec) -> None:
+    """The quality evaluation on the card (``eval_corpus.py --full-report``):
+    synthetic tower weights at the published widths written by the port's
+    tool; a synthetic corpus of 8 FLAC utterances of 4-8 s (seed 0) through
+    the serving codec (fast-int8, random weights), the host metrics, the
+    code statistics and the three towers (TF32 off; once more with TF32 on
+    for the time; each tower timed warm, after one call per bucket); each tower on the card against the CPU on a 4 s
+    utterance, and bucket-padded against exact length on the card; the
+    trainer's held-out probe (``--smoke --steps 4 --eval_every 2``) in a
+    child process."""
+    from simwhisper_codec_tpu_torch import eval_corpus
+    from simwhisper_codec_tpu_torch.ops import _cuda
+    from simwhisper_codec_tpu_torch.tools import make_synthetic_tower_weights as tool
+
+    t_phase = time.perf_counter()
+    gpu = gpu_line()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        weights = tmp / "towers"
+        weights.mkdir()
+        for make, path in ((tool.make_hubert_ctc, weights / "hubert_ctc"),
+                           (tool.make_wavlm_ecapa, weights / "wavlm_large_finetune.pth"),
+                           (tool.make_utmos, weights / "utmos22_strong.ckpt")):
+            t0 = time.perf_counter()
+            info = make(path, 0)
+            size = sum(f.stat().st_size for f in ([path] if path.is_file() else path.iterdir()))
+            log(f"[eval] synthetic {path.name}: {info['params']} parameters, {size} bytes written, "
+                f"{time.perf_counter() - t0:.1f} s (written and loaded back leaf for leaf)")
+
+        corpus = tmp / "corpus"
+        eval_corpus.make_synthetic_corpus(corpus, EVAL_FILES, seed=0, dur_range=EVAL_SECONDS)
+        towers = dict(asr_model=str(weights / "hubert_ctc"), utmos_ckpt=str(weights / "utmos22_strong.ckpt"),
+                      ecapa_ckpt=str(weights / "wavlm_large_finetune.pth"))
+        _cuda.reset_launch_counts()
+        report = eval_corpus.full_report(codec, str(corpus), str(tmp / "out"), batch_size=8, codebook_stats=True,
+                                         **towers)
+        launches = dict(_cuda.launch_counts)
+        log(f"[eval] report: {json.dumps(report)}")
+        want = expected_launches("fast-int8", cfg, 2, 1)  # encode twice (round trip, code statistics), decode once
+        assert launches == want, f"eval launches {launches} != {want}"
+        q, tw = report["quality"], report["towers"]
+        assert report["files"] == EVAL_FILES and q["num_pairs"] == EVAL_FILES and tw["num_pairs"] == EVAL_FILES, report
+        metrics = {**{k: q[k] for k in ("stoi", "pesq_wb", "pesq_nb", "si_snr", "snr", "lsd", "mcd")},
+                   **{k: tw[k] for k in ("wer_rec", "utmos_rec", "utmos_orig", "speaker_sim")},
+                   "entropy": sum(report["codebook"]["entropy_bits_per_group"])}
+        bad = {k: v for k, v in metrics.items() if v is None or not np.isfinite(v)}
+        assert not bad, f"non-finite metrics: {bad}"
+        assert all(v.startswith("ran (") for v in report["gated_metrics"].values()), report["gated_metrics"]
+        timing = report["timing"]
+        tower_line = "; ".join(
+            f"{name} {t['ms_per_audio_s']:.3f} ms per audio s warm ({t['audio_s']:.1f} audio s in {t['run_s']:.2f} s, "
+            f"after {t['warmup_s']:.2f} s of warm-up, one call per bucket; weights loaded in {t['load_s']:.1f} s), "
+            f"peak max_memory_allocated {t['peak_bytes'] / 1e9:.2f} GB"
+            for name, t in timing["towers"].items())
+        log(f"[eval] {gpu}: synthetic weights, TF32 off: codec (fast-int8 round trip + code statistics) "
+            f"{timing['codec_s']:.2f} s, host metrics (STOI, PESQ-WB/NB, SI-SNR, SNR, LSD, MCD on "
+            f"{EVAL_FILES} pairs) {timing['host_metrics_s']:.2f} s; {tower_line}; launches {json.dumps(launches)}")
+        tf32 = eval_corpus.tower_metrics(str(corpus), str(tmp / "out" / "reconstructed"), device="cuda",
+                                         precision="default", **towers)["timing"]
+        log(f"[eval] {gpu}: synthetic weights, TF32 on (timing only, not the default): " + "; ".join(
+            f"{name} {t['ms_per_audio_s']:.3f} ms per audio s warm ({t['run_s']:.2f} s, warm-up {t['warmup_s']:.2f} s)"
+            for name, t in tf32.items()))
+
+        probe_dir = tmp / "probe"
+        probe = start(["-m", TRAIN, "--smoke", "--steps", "4", "--eval_every", "2", "--device", "cuda",
+                       "--output_folder", str(probe_dir), "--checkpoint_every", "4"], tmp / "probe.log")
+        try:
+            rng = np.random.default_rng(3)
+            wav = voice(rng, 4.0, 16000)
+            t0 = time.perf_counter()
+            card = tower_outputs(torch, weights, "cuda", wav)
+            cpu = tower_outputs(torch, weights, "cpu", wav)
+            errs = {k: tower_err(card[k], cpu[k]) for k in ("ctc_logits", "utmos_score", "embedding")}
+            assert card["transcript"] == cpu["transcript"], (card["transcript"], cpu["transcript"])
+            assert all(e <= TOWER_TOL for e in errs.values()), errs
+            pad = padded_vs_exact(torch, card, voice(rng, 5.3, 16000))
+            assert all(e <= TOWER_TOL for e in pad.values()), pad
+            log(f"[eval] full width, TF32 off: card vs CPU on a 4 s utterance, max|d| / max(max|ref|, 1): "
+                f"{json.dumps(errs)} (tolerance {TOWER_TOL}), transcripts equal ({len(card['transcript'])} "
+                f"characters); a 5.3 s utterance padded to its 8 s bucket vs its exact length on the card: "
+                f"{json.dumps(pad)} ({time.perf_counter() - t0:.1f} s)")
+            del card, cpu
+            finish("trainer probe", probe, tmp / "probe.log", 300)
+        finally:
+            if probe.poll() is None:
+                probe.kill()
+                probe.wait()
+        rows = [json.loads(line) for line in (probe_dir / "quality_log.jsonl").read_text().splitlines()]
+        assert [r["step"] for r in rows] == [0, 2, 4], rows
+        for r in rows:
+            assert all(r[k] is not None and np.isfinite(r[k]) for k in ("stoi", "si_snr", "pesq_wb")), r
+        log(f"[eval] trainer probe (--smoke --steps 4 --eval_every 2, cuda): quality_log.jsonl {json.dumps(rows)}")
+    torch.cuda.empty_cache()
+    log(f"[eval] phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def serve_and_cli_phase(torch, cfg, model):
     """Both servers and the CLI start at once (each pays its own start-up);
     the checks then run against each, and every process is stopped."""
@@ -1263,6 +1415,7 @@ def main() -> int:
                                 if launches[r].get(row["name"])), 0)
         row["launches_by_run"] = {r: launches[r].get(row["name"], 0) for r in launches}
     corpus_phase(torch, cfg, serving_codec)
+    eval_phase(torch, cfg, serving_codec)
     serve_and_cli_phase(torch, cfg, model)
     del model, serving_codec
     torch.cuda.empty_cache()

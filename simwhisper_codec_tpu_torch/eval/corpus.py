@@ -2,7 +2,9 @@
 
 Counterpart of ``simwhisper_codec_tpu/eval/corpus.py:33-151``.  Files are
 sharded by process (``torch.distributed`` rank and world size when it is
-initialised, else one process), probed for their lengths, and grouped into
+initialised, else one process), except under a data-parallel codec, which
+splits every batch over the ranks itself: then each rank takes every file
+and rank 0 alone writes.  Files are probed for their lengths, and grouped into
 length-bucketed batches; each batch runs the codec's chunked ``encode`` and
 ``decode``.  The next batch is decoded on the host while the current one
 runs (double-buffered loading through the native loader), and the WAV
@@ -42,17 +44,23 @@ def process_index_count() -> Tuple[int, int]:
 
 def evaluate_corpus(codec: AudioCodec, input_dir: str, output_dir: Optional[str] = None, batch_size: int = 8,
                     overlap_seconds: int = 10, limit: Optional[int] = None) -> dict:
-    """Encode + decode every file of this process's shard; returns the
-    throughput stats (and writes ``<stem>.wav`` reconstructions).
+    """Encode + decode every file of this process's shard (of the corpus,
+    under a data-parallel codec); returns the throughput stats (and writes
+    ``<stem>.wav`` reconstructions, on rank 0 alone under a data-parallel codec).
 
     ``warmup_seconds`` is the first batch's time (kernel builds, cuDNN
     planning); ``steady_x_realtime`` leaves that batch out of both the audio
     and the clock.  ``bitrate_bps`` is code frames x ``bits_per_frame`` over
     the audio's seconds.
     """
-    paths = shard_files_by_process(find_audio_files(input_dir), *process_index_count())
+    ctx = codec.dist_context
+    # a data-parallel codec runs every batch on all ranks together: no file sharding
+    rank, world = (0, 1) if ctx.grouped else process_index_count()
+    paths = shard_files_by_process(find_audio_files(input_dir), rank, world)
     if limit:
         paths = paths[:limit]
+    if ctx.rank != 0:  # every rank holds the whole batch's output; rank 0 writes it
+        output_dir = None
     if output_dir:
         Path(output_dir).mkdir(parents=True, exist_ok=True)
 

@@ -18,6 +18,14 @@ the same global batch (rounded up to a multiple of the world size) and
 trains on its own rows; gradients and metrics are averaged over the ranks;
 rank 0 alone writes logs and checkpoints (``ckpt_{step:07d}.pt``).
 
+Held-out quality probe (``--eval_every N``): a fixed batch (the centre crops
+of ``--eval_folder``'s files, else unseen-seed synthetic voices 10000+i)
+goes through the training forward under ``no_grad`` every N steps and at
+the last step; STOI, SI-SNR and PESQ-WB (native P.862) of each item, averaged,
+go into ``quality_log.jsonl`` with a step-0 row for the initial weights.
+The log is truncated on a fresh run and appended to on ``--resume``; only
+rank 0 evaluates.
+
 Run:  python -m simwhisper_codec_tpu_torch.experiments.codec.train --data_folder wavs
       torchrun --nproc_per_node N -m simwhisper_codec_tpu_torch.experiments.codec.train \\
           --data_folder wavs --data_parallel
@@ -43,7 +51,7 @@ from simwhisper_codec_tpu_torch.config import (
     SampleStackConfig,
     VocosConfig,
 )
-from simwhisper_codec_tpu_torch.models.codec import f32_precision, init_params, resolve_device
+from simwhisper_codec_tpu_torch.models.codec import f32_precision, init_params, resolve_device, training_forward
 from simwhisper_codec_tpu_torch.models.hifigan import Discriminator, init_hifigan
 from simwhisper_codec_tpu_torch.ops.mel import MelConstants, log_mel
 from simwhisper_codec_tpu_torch.parallel import dist
@@ -107,6 +115,76 @@ def segment_mel(cfg: CodecConfig, segment_samples: int) -> MelConstants:
     return MelConstants(fe)
 
 
+def synthetic_voice(seed: int, seconds: float, sr: int) -> np.ndarray:
+    """Formant-modulated harmonic voice (the held-out probe's carriers)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = rng.uniform(90, 220) * (1.0 + 0.06 * np.sin(2 * np.pi * rng.uniform(1.5, 3.0) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(h * phase + rng.uniform(0, 6)) / h ** rng.uniform(0.5, 0.9) for h in range(1, 24))
+    x *= 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(2.5, 4.0) * t + rng.uniform(0, 6))
+    x *= np.clip(np.sin(2 * np.pi * rng.uniform(1.2, 2.2) * t) * 4.0, 0.0, 1.0)
+    x = x + 0.005 * rng.standard_normal(len(t))
+    return (0.2 * x / np.max(np.abs(x))).astype(np.float32)
+
+
+def eval_batch(cfg: CodecConfig, segment_samples: int, eval_folder=None) -> np.ndarray:
+    """The probe's fixed batch: centre crops (or zero pads) of the folder's
+    files, else eight unseen-seed synthetic voices."""
+    sr = cfg.input_sample_rate
+    if eval_folder:
+        raw = [load_audio(path, sr) for path in find_audio_files(eval_folder)]
+    else:
+        raw = [synthetic_voice(10_000 + i, segment_samples / sr, sr) for i in range(8)]
+    batch = np.zeros((len(raw), segment_samples), np.float32)
+    for i, w in enumerate(raw):
+        if len(w) >= segment_samples:
+            s = (len(w) - segment_samples) // 2
+            batch[i] = w[s: s + segment_samples]
+        else:
+            batch[i, : len(w)] = w
+    return batch
+
+
+def score_batch(ref: np.ndarray, deg: np.ndarray, sr: int) -> dict:
+    """Mean STOI, SI-SNR and PESQ-WB of (reference, reconstruction) rows; a
+    metric with no finite value is None."""
+    from simwhisper_codec_tpu_torch.eval import metrics as M
+
+    rows = [{"stoi": M.stoi(r, d, sr), "si_snr": M.si_snr(r, d),
+             "pesq_wb": M.pesq_score(r.astype(np.float64), d.astype(np.float64), sr, "wb")}
+            for r, d in zip(ref, deg)]
+    rec = {"n_eval": len(rows)}
+    for k in ("stoi", "si_snr", "pesq_wb"):
+        vals = [r[k] for r in rows if r[k] is not None and np.isfinite(r[k])]
+        rec[k] = round(float(np.mean(vals)), 4) if vals else None
+    return rec
+
+
+class QualityProbe:
+    """Reconstructs the fixed batch through the current weights and appends
+    one row a call to ``quality_log.jsonl``."""
+
+    def __init__(self, cfg: CodecConfig, seg_mel: MelConstants, segment_samples: int, mel_frames: int,
+                 eval_folder, log_path: Path, device: torch.device):
+        self.sr = cfg.input_sample_rate
+        self.segment_samples = segment_samples
+        self.batch = eval_batch(cfg, segment_samples, eval_folder)
+        with torch.no_grad(), f32_precision("highest"):
+            self.mel = log_mel(seg_mel, torch.from_numpy(self.batch).to(device))
+        self.lens = torch.full((len(self.batch),), mel_frames, dtype=torch.int64, device=device)
+        self.log_path = log_path
+
+    def __call__(self, model, step: int) -> dict:
+        with torch.no_grad(), f32_precision("highest"):
+            y = training_forward(model, self.mel, self.lens)["reconstructed_audio"]
+        rec = dict(step=step, **score_batch(self.batch, y[:, : self.segment_samples].cpu().numpy(), self.sr))
+        logger.info("quality %s", json.dumps(rec))
+        with open(self.log_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        return rec
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--data_folder", default=None)
@@ -122,6 +200,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--smoke", action="store_true", help="tiny widths on synthetic audio")
     p.add_argument("--small", action="store_true", help="reduced-width production-shaped config")
+    p.add_argument("--eval_every", type=int, default=0,
+                   help="score a held-out batch (STOI, SI-SNR, PESQ-WB) every N steps into quality_log.jsonl")
+    p.add_argument("--eval_folder", default=None, help="held-out audio for --eval_every (synthetic voices without it)")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     p.add_argument("--data_parallel", action="store_true",
                    help="split each global batch over torchrun's ranks (one GPU each)")
@@ -189,6 +270,13 @@ def main(argv=None) -> None:
     start_step = state.step + 1
     if ctx.rank == 0 and start_step == 1:
         log_path.write_text("")  # a fresh run starts a fresh log
+    probe = None
+    if args.eval_every and ctx.rank == 0:
+        probe = QualityProbe(cfg, seg_mel, segment_samples, mel_frames, args.eval_folder, out / "quality_log.jsonl",
+                             device)
+        if start_step == 1:
+            probe.log_path.write_text("")
+            probe(state.model, 0)  # the initial weights' row
     t0 = time.time()
     for step in range(start_step, args.steps + 1):
         # step-keyed rng: a resumed run crops the same batches as a continuous
@@ -209,6 +297,8 @@ def main(argv=None) -> None:
             logger.info("%s", json.dumps(rec))
             with open(log_path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
+        if probe is not None and (step % args.eval_every == 0 or step == args.steps):
+            probe(state.model, step)
         if ctx.rank == 0 and (step % args.checkpoint_every == 0 or step == args.steps):
             t_save = time.perf_counter()
             save_training_state(str(out / f"ckpt_{step:07d}.pt"), state.state_dict())

@@ -271,6 +271,11 @@ class AudioCodec:
         self.decoder_upsample_rate = cfg.decoder_upsample_rate
         self.num_groups = cfg.quantizer.num_groups
 
+    @property
+    def dist_context(self) -> dist_ctx.DistContext:
+        """The ranks this codec splits each batch over (a world of one unless ``data_parallel``)."""
+        return self._dist
+
     # -- single-chunk paths --------------------------------------------------
 
     def _pad_batch_dim(self, b: int) -> int:

@@ -94,8 +94,8 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
-        "       or m == 'simwhisper_codec_tpu' or m.startswith('simwhisper_codec_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'simwhisper_codec_tpu',\n"
+        "                                                   'transformers', 'safetensors', 'tools')]\n"
         "assert not bad, bad\n"
         "print('clean', len([m for m in sys.modules if m.startswith('simwhisper_codec_tpu_torch')]))\n"
     )
@@ -112,3 +112,7 @@ def test_port_sources_name_no_jax():
             if s.startswith(("import ", "from ")):
                 assert "jax" not in s and "simwhisper_codec_tpu." not in s.replace("simwhisper_codec_tpu_torch", ""), \
                     f"{f}: {s}"
+                # the top package of each imported module: ``from tools.x import y``, ``import a.b, c as d``
+                mods = s.split()[1:2] if s.startswith("from ") else [m.split()[0] for m in s[7:].split(",") if m.strip()]
+                tops = {m.split(".")[0] for m in mods}
+                assert not tops & {"transformers", "safetensors", "tools"}, f"{f}: {s}"

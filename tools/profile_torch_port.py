@@ -8,9 +8,10 @@ a batch of 8 x 30 s with ``torch.profiler`` for each requested configuration
 the B4 whole-block Vocos kernel; ``fast-dw``: fast mode with B4, attention
 as in ``fast``, so that its detokenize differs from fast's in the Vocos
 alone; ``parity-pflash`` / ``parity-flash``: parity mode with the f32
-attention kernels).  Prints per stage: host wall time of an untraced call, summed
-device time of the traced call, the device's idle share (1 - device time /
-untraced wall time; one stream, so kernels do not overlap) and the kernels
+attention kernels).  Prints per stage: host wall time of an untraced call and of the
+traced call, summed device time of the traced call, the device's idle share
+over the traced call (1 - device time / its wall time; one stream, so
+kernels do not overlap) and the kernels
 that take the most device time, and the device time of these groups: the
 hand kernels, host-to-device copies, and cuBLAS/cuDNN GEMMs.  The full
 table goes to ``<out_dir>/profile_<config>.json``.
@@ -87,18 +88,21 @@ def device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
 
 
-def profile_stage(torch, fn):
+def trace_call(torch, fn) -> dict:
+    """One untraced call (``wall_ms``) and one call traced with ``torch.profiler``:
+    that call's own wall time (``traced_wall_ms``), its device time and the
+    device's idle share over the same call (1 - device time / traced wall time;
+    one stream, so kernels do not overlap), and its device-side events by name.
+    A device time above the traced wall time means the two did not measure the
+    same work: ``device_exceeds_wall`` is then true and ``idle_share`` None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from simwhisper_codec_tpu_torch.ops import _cuda
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    _cuda.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -112,14 +116,31 @@ def profile_stage(torch, fn):
         raise RuntimeError("the trace holds no device time")
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    groups = {g: sum(ms for k, ms, _ in rows if any(f in k for f in frags)) for g, frags in GROUPS.items()}
-    missing = unmatched_groups(_cuda.launch_counts, groups)
+    exceeds = busy_ms > wall_ms
+    return {"wall_ms": plain_wall_ms, "traced_wall_ms": wall_ms, "device_ms": busy_ms,
+            "device_over_traced_wall": busy_ms / wall_ms, "device_exceeds_wall": exceeds,
+            "idle_share": None if exceeds else 1.0 - busy_ms / wall_ms,
+            "device_launches": sum(c for _, _, c in rows),
+            "kernels": [{"name": k, "device_ms": ms, "calls": c} for k, ms, c in rows]}
+
+
+def idle_text(r: dict) -> str:
+    if r["device_exceeds_wall"]:
+        return f"idle share not measured (device time {r['device_over_traced_wall']:.3f}x the traced wall time)"
+    return f"idle share {r['idle_share']:.3f}"
+
+
+def profile_stage(torch, fn):
+    from simwhisper_codec_tpu_torch.ops import _cuda
+
+    _cuda.reset_launch_counts()
+    r = trace_call(torch, fn)
+    r["groups_ms"] = {g: sum(k["device_ms"] for k in r["kernels"] if any(f in k["name"] for f in frags))
+                      for g, frags in GROUPS.items()}
+    missing = unmatched_groups(_cuda.launch_counts, r["groups_ms"])
     if missing:
         raise RuntimeError(f"launched but matched by no traced kernel name: {missing} (GROUPS is stale)")
-    return {"wall_ms": plain_wall_ms, "traced_wall_ms": wall_ms, "device_ms": busy_ms,
-            "idle_share": max(0.0, 1.0 - busy_ms / plain_wall_ms),
-            "device_launches": sum(c for _, _, c in rows), "groups_ms": groups,
-            "kernels": [{"name": k, "device_ms": ms, "calls": c} for k, ms, c in rows]}
+    return r
 
 
 def main() -> int:
@@ -158,8 +179,7 @@ def main() -> int:
         for stage in ("tokenize", "detokenize"):
             r = result[stage]
             print(f"[{name}/{stage}] wall {r['wall_ms']:.3f} ms (traced {r['traced_wall_ms']:.3f}), "
-                  f"device {r['device_ms']:.3f} ms in {r['device_launches']} launches, "
-                  f"idle share {r['idle_share']:.3f}", flush=True)
+                  f"device {r['device_ms']:.3f} ms in {r['device_launches']} launches, {idle_text(r)}", flush=True)
             print(f"    groups (ms): {json.dumps({g: round(v, 3) for g, v in r['groups_ms'].items()})}", flush=True)
             for k in r["kernels"][:12]:
                 print(f"    {k['device_ms']:9.3f} ms  {k['calls']:5d}x  {k['name'][:110]}", flush=True)
