@@ -44,7 +44,16 @@ Phases, any failure exits non-zero:
      trainer and ``AudioCodec(data_parallel=True)`` under a world-size-1
      NCCL group against runs without it (``--dp_gpus N`` runs only those
      over N GPUs);
-  6. print the kernel table, the GPU's name and power limit, and the result.
+  6. the variant modules and the HiFi-GAN continuation recipe
+     (``variants_phase``): the encoder's hidden states at full width with the
+     f32 B1 / B5 kernels against dense attention (launch counts read around
+     each run), the semantic encoder, the Vocos variants, the STFT and the
+     MDCT / IMDCT card against CPU; then, in child processes, the recipe at
+     full width (data prep, Whisper-encoder features, 3 epochs of
+     ``HifiGanConfig(768, 512)`` at batch 32 x 8960), a fresh process
+     resuming from epoch 3's checkpoint with its state bit for bit, and
+     HuBERT-base feature extraction; the HiFi-GAN generator card against CPU;
+  7. print the kernel table, the GPU's name and power limit, and the result.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -1366,6 +1375,318 @@ def dp_phase(torch, n_gpus: int, work: Path) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+# -- phase 6: the variant modules and the HiFi-GAN continuation recipe --------
+
+RECIPE = "simwhisper_codec_tpu_torch.experiments.hifigan_continue.train"
+EXTRACT = "simwhisper_codec_tpu_torch.experiments.hifigan_continue.extract_features"
+VARIANT_TOL = 1e-4  # kernel vs dense and card vs CPU: max |d| <= TOL * max(max |ref|, 1)
+HIDDEN_SECONDS = (30, 26, 21, 17, 12, 8, 4, 1)  # one utterance in each 30 s window of the batch
+RECIPE_VOICES = 40  # 1-3 s each; the 80/10/10 split leaves 32 training utterances, one batch of 32
+RECIPE_EPOCHS = 3
+
+
+def rel_err(torch, got, want, where=None) -> float:
+    """max |got - want| over max(max |want|, 1), on ``where`` if given (float64,
+    on the tensors' device)."""
+    d, w = (got.double() - want.double()).abs(), want.double().abs()
+    if where is not None:
+        d, w = d[where], w[where]
+    return float(d.max()) / max(float(w.max()), 1.0)
+
+
+def linear_mag(torch, log_mag):
+    """|X| from ``stft_log_mag_phase``'s log(|X| + 1e-5), in float64."""
+    return torch.exp(log_mag.double()) - 1e-5
+
+
+def wrapped_phase_diff(a, b):
+    """|a - b| wrapped into [0, pi], in float64."""
+    return ((a.double() - b.double() + np.pi).remainder(2 * np.pi) - np.pi).abs()
+
+
+def random_encoder(torch, cfg):
+    from simwhisper_codec_tpu_torch.models.transformer import Encoder, init_transformer
+
+    enc = Encoder(cfg)
+    init_transformer(enc, torch.Generator().manual_seed(0))
+    return enc.eval()
+
+
+def hidden_states_check(torch) -> dict:
+    """``Encoder(output_hidden_states=True)`` at ``EncoderConfig()`` (12 x 768,
+    random weights, seed 0) on 8 x 30 s windows, TF32 off: ``pflash`` and
+    ``flash`` (the f32 B1 / B5 kernels, launch counts read around each run)
+    against ``dense`` on all 13 states; then the semantic encoder
+    (``is_acoustic=False``) on one 30 s utterance, card against CPU.
+    Returns the launches by run."""
+    from simwhisper_codec_tpu_torch.config import EncoderConfig, FeatureExtractorConfig
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+    from simwhisper_codec_tpu_torch.ops import _cuda
+    from simwhisper_codec_tpu_torch.ops.mel import MelConstants, log_mel, mel_lengths
+
+    dev = torch.device("cuda")
+    cfg, fe = EncoderConfig(), FeatureExtractorConfig()
+    rng = np.random.default_rng(12)
+    wav = np.zeros((len(HIDDEN_SECONDS), fe.n_samples), np.float32)
+    for i, s in enumerate(HIDDEN_SECONDS):
+        wav[i, : s * fe.sampling_rate] = voice(rng, s, fe.sampling_rate)
+    consts = MelConstants(fe).to(dev)
+    enc = random_encoder(torch, cfg).to(dev)
+    out, launches, ms = {}, {}, {}
+    with torch.no_grad(), f32_precision("highest"):
+        mel = log_mel(consts, torch.from_numpy(wav).to(dev))
+        lens = mel_lengths(torch.tensor([s * fe.sampling_rate for s in HIDDEN_SECONDS], device=dev),
+                           fe.hop_length, consts.n_frames)
+        for impl in ("dense", "pflash", "flash"):
+            def run(impl=impl):
+                return enc(mel, lens, attn_impl=impl, output_hidden_states=True)
+            _cuda.reset_launch_counts()
+            out[impl] = run()
+            torch.cuda.synchronize()
+            launches[f"hidden-{impl}"] = dict(_cuda.launch_counts)
+            ms[impl] = time_ms(torch, run, 3)
+        final, out_lens, states = out["dense"]
+        assert states.shape == (cfg.encoder_layers + 1, len(HIDDEN_SECONDS), 1500, cfg.d_model), states.shape
+        assert torch.equal(states[-1], final) and bool(torch.isfinite(states).all())
+        errs = {impl: rel_err(torch, out[impl][2], states) for impl in ("pflash", "flash")}
+        want = {"hidden-dense": {}, "hidden-pflash": {"pflash_attention_f32": cfg.encoder_layers},
+                "hidden-flash": {"flash_attention_f32": cfg.encoder_layers}}
+        assert launches == want, f"hidden-state launches {launches} != expected {want}"
+        del out, final, states
+        sem = random_encoder(torch, EncoderConfig(is_acoustic=False))
+        _, _, sem_cpu = sem(mel[:1].cpu(), lens[:1].cpu(), output_hidden_states=True)
+        sem = sem.to(dev)
+        _, _, sem_card = sem(mel[:1], lens[:1], output_hidden_states=True)
+        errs["semantic"] = rel_err(torch, sem_card.cpu(), sem_cpu)
+        ms["semantic, 1 x 30 s"] = time_ms(torch, lambda: sem(mel[:1], lens[:1], output_hidden_states=True), 3)
+    log(f"[variants] {gpu_line()}: encoder hidden states at EncoderConfig() (12 x 768, random weights), "
+        f"8 x 30 s windows (utterances of {', '.join(map(str, HIDDEN_SECONDS))} s), TF32 off: ms a call "
+        f"{json.dumps(ms)}; 13 states, max |d| / max(max |dense|, 1): {json.dumps(errs)} (tolerance "
+        f"{VARIANT_TOL}; semantic = card vs CPU); launches {json.dumps(launches)}")
+    bad = {k: v for k, v in errs.items() if not v <= VARIANT_TOL}
+    if bad:
+        raise AssertionError(f"hidden states out of tolerance: {bad}")
+    return launches
+
+
+def variants_check(torch) -> None:
+    """The Vocos variants at the production widths (backbone 80 -> 512, 3
+    blocks; both IMDCT heads at dim 512, frame 320) on (8, 3000, 80), the STFT
+    (n_fft 640, hop 160, both ``center``; its magnitude) and an MDCT -> IMDCT
+    round trip on 8 x 30 s voices: card against CPU, TF32 off.  The STFT's
+    log-magnitude and phase (the latter where the magnitude exceeds 1e-3) are
+    held to float64 instead: the card's error no more than twice the CPU's."""
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+    from simwhisper_codec_tpu_torch.models.vocos_variants import IMDCTCosHead, IMDCTSymExpHead, VocosResNetBackbone
+    from simwhisper_codec_tpu_torch.ops import stft
+
+    dev = torch.device("cuda")
+    torch.manual_seed(0)
+    backbone = VocosResNetBackbone(80, 512, 3)
+    heads = {"imdct_symexp_head": IMDCTSymExpHead(512, 320), "imdct_cos_head": IMDCTCosHead(512, 320)}
+    x = torch.randn(8, 3000, 80, generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(13)
+    audio = torch.from_numpy(np.stack([voice(rng, 30.0, 16000) for _ in range(8)]))
+    errs, ms, vs_f64 = {}, {}, {}
+
+    def card_vs_cpu(name, fn, module, *args):
+        """fn(module, *args) on the CPU, then on the card; returns (card's on the CPU, CPU's)."""
+        want = fn(module.cpu(), *args)
+        module.to(dev)
+        dev_args = [a.to(dev) for a in args]
+        got = fn(module, *dev_args)
+        ms[name] = time_ms(torch, lambda: fn(module, *dev_args), 5)
+        return got.cpu() if isinstance(got, torch.Tensor) else [g.cpu() for g in got], want
+
+    with torch.no_grad(), f32_precision("highest"):
+        got, h = card_vs_cpu("resnet_backbone", lambda m, a: m(a), backbone, x)
+        errs["resnet_backbone"] = rel_err(torch, got, h)
+        for name, head in heads.items():
+            got, want = card_vs_cpu(name, lambda m, a: m(a), head, h)
+            assert got.shape == (8, 480000), got.shape
+            errs[name] = rel_err(torch, got, want)
+        for center in (True, False):
+            consts = stft.make_stft_constants(640, 160, 640, center)
+            (mag, phase), (mag_ref, phase_ref) = card_vs_cpu(
+                f"stft center={center}", stft.stft_log_mag_phase, consts, audio)
+            mag64, phase64 = stft.stft_log_mag_phase(stft.make_stft_constants(640, 160, 640, center).double(),
+                                                     audio.double())
+            errs[f"stft center={center} |X|"] = rel_err(torch, linear_mag(torch, mag), linear_mag(torch, mag_ref))
+            # log and atan2 amplify the f32 DFT's absolute error (~1e-5) where
+            # |X| is small: each device's log-magnitude (all bins) and phase
+            # (|X| > 1e-3) against float64, the card's no worse than 2x the CPU's
+            sure = linear_mag(torch, mag64) > 1e-3
+            for name, card, cpu, exact, where, diff in (
+                    ("log_mag", mag, mag_ref, mag64, None, lambda a, b: (a.double() - b).abs()),
+                    ("phase", phase, phase_ref, phase64, sure, wrapped_phase_diff)):
+                e_card, e_cpu = (float(diff(x, exact)[where].max() if where is not None else diff(x, exact).max())
+                                 for x in (card, cpu))
+                vs_f64[f"stft center={center} {name}"] = {"card": e_card, "cpu": e_cpu}
+            vs_f64[f"stft center={center} phase"]["share compared"] = float(sure.double().mean())
+        consts = stft.make_mdct_constants(320)
+        coeffs, coeffs_ref = card_vs_cpu("mdct", stft.mdct, consts, audio)
+        recon, recon_ref = card_vs_cpu("imdct", stft.imdct, consts, coeffs_ref)
+        errs["mdct"] = rel_err(torch, coeffs, coeffs_ref)
+        errs["imdct"] = rel_err(torch, recon, recon_ref)
+        errs["round trip vs audio (edges of 160 cut)"] = rel_err(torch, recon[:, 160:-160], audio[:, 160:-160])
+    log(f"[variants] {gpu_line()}: card vs CPU, TF32 off, max |d| / max(max |CPU|, 1): {json.dumps(errs)} "
+        f"(tolerance {VARIANT_TOL}); STFT max |d| against float64 on the CPU, card and CPU: {json.dumps(vs_f64)} "
+        f"(the card's within 2x the CPU's); card ms a call: {json.dumps(ms)}")
+    bad = {k: v for k, v in errs.items() if not v <= VARIANT_TOL}
+    bad.update({k: v for k, v in vs_f64.items() if not v["card"] <= 2 * v["cpu"]})
+    if bad:
+        raise AssertionError(f"variants out of tolerance: {bad}")
+
+
+def generator_check(torch) -> None:
+    """One ``Generator(HifiGanConfig())`` forward (768 -> 512 channels, seed 0)
+    on 8 x 50 feature frames, card against CPU, TF32 off.  The weight-norm
+    gains are scaled to unit-gain convolutions (std 1 / sqrt(fan-in)): at the
+    recipe's init (v ~ N(0, 0.01^2)) the output is ~1e-5 and the bound,
+    relative to max(max |ref|, 1), could not fail."""
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+    from simwhisper_codec_tpu_torch.models.hifigan import Generator, HifiGanConfig, WNConvTranspose1d, init_hifigan
+
+    dev = torch.device("cuda")
+    gen = init_hifigan(Generator(HifiGanConfig()), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in gen.modules():
+            if hasattr(m, "g"):  # (O, I, K) convs; (I, O, K) transposed convs
+                fan_in = m.v.shape[0 if isinstance(m, WNConvTranspose1d) else 1] * m.v.shape[2]
+                m.g.mul_(1.0 / (0.01 * fan_in ** 0.5))
+    feats = torch.randn(8, 50, 768, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad(), f32_precision("highest"):
+        want = gen(feats)
+        gen.to(dev)
+        dev_feats = feats.to(dev)
+        got = gen(dev_feats).cpu()
+        ms = time_ms(torch, lambda: gen(dev_feats), 5)
+    err = rel_err(torch, got, want)
+    log(f"[variants] HiFi-GAN Generator(HifiGanConfig()) on 8 x 50 frames -> {tuple(got.shape)} (max |y| "
+        f"{float(want.abs().max()):.3f}): card vs CPU {err:.3g} (tolerance {VARIANT_TOL}), {ms:.3f} ms a call "
+        f"on the card")
+    if not (got.shape == (8, 16000) and err <= VARIANT_TOL):
+        raise AssertionError(f"generator: shape {tuple(got.shape)}, card vs CPU {err}")
+
+
+def recipe_log(folder: Path) -> str:
+    return (folder / "train_log.txt").read_text()
+
+
+def check_features(folder: Path, n: int, frames) -> None:
+    """``n`` finite [T, 1, 768] f32 feature files, T = frames(utterance id)."""
+    files = sorted(folder.glob("*.npy"))
+    assert len(files) == n, (folder, len(files))
+    for f in files:
+        a = np.load(f)
+        assert a.dtype == np.float32 and a.shape == (frames(f.stem), 1, 768) and np.isfinite(a).all(), (f, a.shape)
+
+
+def recipe_phase(torch) -> None:
+    """The HiFi-GAN continuation recipe at full width, each run a child process
+    with deterministic kernels: data prep of 40 synthetic voices (half WAV,
+    half FLAC), Whisper-encoder features at ``EncoderConfig()`` and 3 epochs of
+    ``HifiGanConfig(768, 512)`` at batch 32 x 8960 (one step an epoch); then,
+    side by side, a fresh process resuming at epoch 4 from epoch 3's
+    checkpoint and ``--feature_type hubert`` extraction at
+    ``hubert_base_config()``; beside them the generator alone, card vs CPU."""
+    from simwhisper_codec_tpu_torch.models.ssl import feat_extract_output_length, hubert_base_config
+    from simwhisper_codec_tpu_torch.utils.audio_io import save_audio
+    from simwhisper_codec_tpu_torch.utils.checkpoint import load_training_state, state_digest
+    from simwhisper_codec_tpu_torch.utils.flac import write_flac
+
+    sr = 16000
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        data, out = tmp / "wavs", tmp / "recipe"
+        data.mkdir()
+        rng = np.random.default_rng(14)
+        samples = {}
+        for i in range(RECIPE_VOICES):
+            wav = voice(rng, rng.uniform(1.0, 3.0), sr)
+            samples[f"v{i:02d}"] = len(wav)
+            if i % 2:
+                write_flac(data / f"v{i:02d}.flac", np.round(wav * 32767).astype(np.int64), sr)
+            else:
+                save_audio(data / f"v{i:02d}.wav", wav, sr)
+        common = ["-m", RECIPE, "--data_folder", str(data), "--output_folder", str(out), "--allow_random",
+                  "--seed", "0", "--keep_checkpoint_interval", "1", "--device", "cuda"]
+        t0 = time.perf_counter()
+        finish("recipe", start(common + ["--epochs", str(RECIPE_EPOCHS)], tmp / "recipe.log"), tmp / "recipe.log", 600)
+        wall = time.perf_counter() - t0
+        text = recipe_log(out)
+        epochs = [re.search(rf"epoch {e}: g_loss=(\S+) batches=(\d+) time=\S+ step_ms=(\S+) "
+                            rf"max_memory_allocated=(\d+)", text) for e in range(1, RECIPE_EPOCHS + 1)]
+        assert all(m and m.group(2) == "1" and np.isfinite(float(m.group(1))) for m in epochs), text[-3000:]
+        step_ms = [float(m.group(3)) for m in epochs]
+        peak = max(int(m.group(4)) for m in epochs)
+        manifests = {s: json.loads((out / "save" / f"{s}.json").read_text()) for s in ("train", "valid", "test")}
+        assert [len(manifests[s]) for s in ("train", "valid", "test")] == [32, 4, 4], manifests
+        mel_frames = lambda stem: -(-samples[stem] // 160) // 2  # noqa: E731
+        check_features(out / "save" / "custom_features", 36, mel_frames)
+        ckpts = sorted(p.name for p in (out / "checkpoints").glob("*.pt"))
+        assert ckpts == [f"epoch_{e:04d}.pt" for e in range(1, RECIPE_EPOCHS + 1)], ckpts
+        assert len(list((out / "samples").glob("epoch_*.wav"))) == RECIPE_EPOCHS
+        timed = step_ms[1:]
+        step = float(np.mean(timed))
+        audio_s = 32 * 8960 / sr
+        log(f"[recipe] {gpu_line()}: HiFi-GAN continuation at full width (Whisper-encoder features at "
+            f"EncoderConfig(), random weights; HifiGanConfig(768, 512), batch 32 x 8960): {step:.1f} ms a step "
+            f"(steps 2-{RECIPE_EPOCHS}: {', '.join(f'{v:.1f}' for v in timed)}; step 1 {step_ms[0]:.1f}), "
+            f"{audio_s / (step / 1e3):.2f} audio s trained a GPU s, peak max_memory_allocated {peak / 1e9:.2f} GB; "
+            f"g_loss by epoch {[float(m.group(1)) for m in epochs]}; run {wall:.1f} s ("
+            + "; ".join(re.sub(r"^\S+ \S+ ", "", line) for line in text.splitlines() if "ready in" in line) + ")")
+
+        t0 = time.perf_counter()
+        children = {
+            "resume": (start(common + ["--resume", "--epochs", str(RECIPE_EPOCHS + 1)], tmp / "resume.log"),
+                       tmp / "resume.log"),
+            "hubert": (start(["-m", EXTRACT, "--manifest", str(out / "save" / "train.json"), "--out_dir",
+                              str(tmp / "hubert"), "--feature_type", "hubert", "--allow_random", "--device", "cuda"],
+                             tmp / "hubert.log"), tmp / "hubert.log"),
+        }
+        try:
+            generator_check(torch)
+            for name, (proc, path) in children.items():
+                finish(name, proc, path, 600)
+        finally:
+            for proc, _ in children.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        side_wall = time.perf_counter() - t0
+        last = f"epoch_{RECIPE_EPOCHS:04d}.pt"
+        resumed = re.search(rf"resumed from {last} \(next epoch {RECIPE_EPOCHS + 1}, step (\d+), state digest (\w+)\)",
+                            recipe_log(out))
+        ckpt = load_training_state(str(out / "checkpoints" / last), map_location="cpu")
+        lr = 2e-4
+        for _ in range(RECIPE_EPOCHS):
+            lr *= 0.9999
+        assert resumed and int(resumed.group(1)) == ckpt["step"] == RECIPE_EPOCHS, resumed
+        assert resumed.group(2) == state_digest(ckpt), "the resumed state differs from the checkpoint"
+        assert all(ckpt[k]["param_groups"][0]["lr"] == lr for k in ("g_opt", "d_opt")), "learning rates"
+        assert re.search(rf"epoch {RECIPE_EPOCHS + 1}: g_loss=\S+ batches=1 ", recipe_log(out))
+        del ckpt
+        hub = hubert_base_config()
+        check_features(tmp / "hubert", 32, lambda stem: feat_extract_output_length(hub, samples[stem]))
+        log(f"[recipe] a fresh --resume process restored epoch {RECIPE_EPOCHS}'s checkpoint bit for bit (G, D, "
+            f"both optimizers' moments and steps, lr {lr!r}, step {RECIPE_EPOCHS}: equal state digests) and "
+            f"trained epoch {RECIPE_EPOCHS + 1}; --feature_type hubert --allow_random wrote 32 finite [T, 1, 768] "
+            f"features at hubert_base_config(); side by side {side_wall:.1f} s")
+
+
+def variants_phase(torch) -> dict:
+    """Phase 6; returns the hidden-state runs' launches."""
+    t_phase = time.perf_counter()
+    launches = hidden_states_check(torch)
+    torch.cuda.empty_cache()
+    variants_check(torch)
+    torch.cuda.empty_cache()
+    recipe_phase(torch)
+    log(f"[variants] phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dp_gpus", type=int, default=0,
@@ -1409,17 +1730,18 @@ def main() -> int:
     log(f"[codec] full-width random weights: {sum(p.numel() for p in model.parameters())} parameters, "
         f"init {time.perf_counter() - t0:.1f} s")
     launches, serving_codec = codec_phase(torch, cfg, model)
-    for row in rows:  # launches on the serving default's path, else on the first run that launched it
-        row["launches"] = next((launches[r][row["name"]] for r in ("fast-int8", "fast", "fast-flash-dw",
-                                                                  "parity-pflash", "parity-flash")
-                                if launches[r].get(row["name"])), 0)
-        row["launches_by_run"] = {r: launches[r].get(row["name"], 0) for r in launches}
     corpus_phase(torch, cfg, serving_codec)
     eval_phase(torch, cfg, serving_codec)
     serve_and_cli_phase(torch, cfg, model)
     del model, serving_codec
     torch.cuda.empty_cache()
     training_phase(torch)
+    launches.update(variants_phase(torch))
+    for row in rows:  # launches on the serving default's path, else on the first run that launched it
+        row["launches"] = next((launches[r][row["name"]] for r in ("fast-int8", "fast", "fast-flash-dw",
+                                                                  "parity-pflash", "parity-flash")
+                                if launches[r].get(row["name"])), 0)
+        row["launches_by_run"] = {r: launches[r].get(row["name"], 0) for r in launches}
     print(gpu_line())  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,11 @@ before the value product); on f32 activations (parity mode) the two run the
 f32 cores of ``csrc/attn_f32.cu``.  FFN impls:
 ``dense`` (exact GELU), ``fused`` (``csrc/ln_ffn.cu``) and ``int8-fused``
 (``csrc/ln_ffn_int8.cu``; needs ``ops.quant.quantize_stacked_ffn``).
+
+``Encoder`` also runs the semantic branch (``is_acoustic=False``: exact
+GELU after each conv, then the sinusoidal positions) and returns the hidden
+states on request; ``GenericTransformer`` is the reference's positional
+Transformer encoder (``modules.py:637-734``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -30,6 +36,16 @@ from simwhisper_codec_tpu_torch.ops.conv import conv1d, conv_transpose1d
 
 ATTN_IMPLS = ("dense", "pflash", "flash")
 FFN_IMPLS = ("dense", "fused", "int8-fused")
+
+
+def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal positions (reference ``modules.py:52-58``), (length, channels) f32,
+    computed in float64 as the JAX package computes them."""
+    assert channels % 2 == 0
+    log_timescale_increment = np.log(max_timescale) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale_increment * np.arange(channels // 2))
+    scaled_time = np.arange(length)[:, None] * inv_timescales[None, :]
+    return torch.from_numpy(np.concatenate([np.sin(scaled_time), np.cos(scaled_time)], axis=1).astype(np.float32))
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-5) -> torch.Tensor:
@@ -137,20 +153,29 @@ class TransformerLayer(nn.Module):
         return x
 
 
-def run_layers(layers: nn.ModuleList, x, lengths, attn_impl: str, ffn_impl: str):
+def run_layers(layers: nn.ModuleList, x, lengths, attn_impl: str, ffn_impl: str, collect: bool = False):
+    """The layer stack; with ``collect`` also the list of each layer's input."""
     bias = attention_bias(lengths, x.shape[1]) if attn_impl == "dense" else None
+    inputs = []
     for layer in layers:
+        if collect:
+            inputs.append(x)
         x = layer(x, bias, lengths, attn_impl, ffn_impl)
-    return x
+    return (x, inputs) if collect else x
+
+
+def add_positions(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    return (x.to(torch.float32) + positions[: x.shape[1]]).to(x.dtype)
 
 
 class Encoder(nn.Module):
-    """Acoustic encoder (modules.py:236-376): two convs, then the layer stack."""
+    """Whisper-style encoder (modules.py:236-376): two convs, then the layer
+    stack.  The semantic branch (``is_acoustic=False``) holds its positions
+    as a non-persistent buffer, so both branches have the same state-dict
+    keys; a reference checkpoint's ``embed_positions.weight`` is not read."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        if not cfg.is_acoustic:
-            raise ValueError("only the acoustic encoder (is_acoustic=True) is ported")
         d = cfg.d_model
         self.cfg = cfg
         self.conv1 = nn.Conv1d(cfg.num_mel_bins, d, cfg.kernel_size, padding=1)
@@ -158,17 +183,59 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(TransformerLayer(d, cfg.encoder_attention_heads, cfg.encoder_ffn_dim)
                                     for _ in range(cfg.encoder_layers))
         self.layer_norm = nn.LayerNorm(d)
+        if not cfg.is_acoustic:
+            self.register_buffer("positions", sinusoids(cfg.max_source_positions, d), persistent=False)
 
-    def forward(self, mel, mel_lengths, attn_impl: str = "dense", ffn_impl: str = "dense"
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """mel (B, T_mel, n_mels) -> hidden (B, T_mel // stride, D), lengths (B,)."""
+    def forward(self, mel, mel_lengths, attn_impl: str = "dense", ffn_impl: str = "dense",
+                output_hidden_states: bool = False):
+        """mel (B, T_mel, n_mels) -> hidden (B, T_mel // stride, D), lengths (B,),
+        and with ``output_hidden_states`` the states (L + 1, B, T, D): the input
+        of each layer, then the final LayerNorm's output, each zero past its
+        length."""
+        semantic = not self.cfg.is_acoustic
         x = conv1d(mel, self.conv1.weight, self.conv1.bias, padding=1)
+        if semantic:
+            x = F.gelu(x, approximate="none")
         x = conv1d(x, self.conv2.weight, self.conv2.bias, stride=self.cfg.stride_size, padding=1)
+        if semantic:
+            x = add_positions(F.gelu(x, approximate="none"), self.positions)
         out_lengths = mel_lengths // self.cfg.stride_size
-        t = x.shape[1]
-        x = run_layers(self.layers, x, out_lengths, attn_impl, ffn_impl)
-        x = layer_norm(x, self.layer_norm)
-        return torch.where(seq_mask(out_lengths, t), x, torch.zeros_like(x)), out_lengths
+        mask = seq_mask(out_lengths, x.shape[1])
+        if not output_hidden_states:
+            x = layer_norm(run_layers(self.layers, x, out_lengths, attn_impl, ffn_impl), self.layer_norm)
+            return torch.where(mask, x, torch.zeros_like(x)), out_lengths
+        if ffn_impl != "dense":
+            # the JAX function drops the FFN impl on this path; refuse rather than ignore it
+            raise ValueError(f"output_hidden_states runs the dense FFN only, got ffn_impl={ffn_impl!r}")
+        x, inputs = run_layers(self.layers, x, out_lengths, attn_impl, "dense", collect=True)
+        final = layer_norm(x, self.layer_norm)
+        states = torch.stack(inputs + [final])
+        return (torch.where(mask, final, torch.zeros_like(final)), out_lengths,
+                torch.where(mask[None], states, torch.zeros_like(states)))
+
+
+class GenericTransformer(nn.Module):
+    """The reference's generic Transformer encoder (modules.py:637-734): the
+    sinusoidal positions always added, dense attention, sequence length kept.
+    Unlike ``Encoder``'s, its hidden states are not masked."""
+
+    def __init__(self, d_model: int, num_heads: int, ffn_dim: int, num_layers: int, max_source_positions: int):
+        super().__init__()
+        self.layers = nn.ModuleList(TransformerLayer(d_model, num_heads, ffn_dim) for _ in range(num_layers))
+        self.layer_norm = nn.LayerNorm(d_model)
+        self.register_buffer("positions", sinusoids(max_source_positions, d_model), persistent=False)
+
+    def forward(self, x, lengths, output_hidden_states: bool = False):
+        """x (B, T, D) -> (B, T, D) masked, lengths, and with
+        ``output_hidden_states`` the unmasked states (L + 1, B, T, D)."""
+        x = add_positions(x, self.positions)
+        mask = seq_mask(lengths, x.shape[1])
+        if not output_hidden_states:
+            final = layer_norm(run_layers(self.layers, x, lengths, "dense", "dense"), self.layer_norm)
+            return torch.where(mask, final, torch.zeros_like(final)), lengths
+        x, inputs = run_layers(self.layers, x, lengths, "dense", "dense", collect=True)
+        final = layer_norm(x, self.layer_norm)
+        return torch.where(mask, final, torch.zeros_like(final)), lengths, torch.stack(inputs + [final])
 
 
 class Decoder(nn.Module):

@@ -135,6 +135,19 @@ class GanTrainState:
     d_opt: torch.optim.Optimizer
     step: int = 0
 
+    def state_dict(self) -> dict:
+        """Both models (the spectral-norm vectors included), both optimizers'
+        moments, steps and learning rates, and the step."""
+        return {"generator": self.generator.state_dict(), "discriminator": self.discriminator.state_dict(),
+                "g_opt": self.g_opt.state_dict(), "d_opt": self.d_opt.state_dict(), "step": self.step}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.generator.load_state_dict(sd["generator"])
+        self.discriminator.load_state_dict(sd["discriminator"])
+        self.g_opt.load_state_dict(sd["g_opt"])
+        self.d_opt.load_state_dict(sd["d_opt"])
+        self.step = int(sd["step"])
+
 
 def make_gan_optimizers(generator: nn.Module, discriminator: nn.Module, learning_rate: float = 2e-4,
                         b1: float = 0.8, b2: float = 0.99):

@@ -12,6 +12,10 @@ The port's modules are named after the reference's state-dict keys, so
    ``weight_g``/``weight_v`` or new ``parametrizations`` keys) and loads it
    with ``load_state_dict``.  Reference buffers (filters, windows, FSQ
    levels) are dropped: the port recomputes them;
+ - ``encoder_state_from_jax``, ``generic_transformer_state_from_jax``,
+   ``resnet_backbone_state_from_jax`` and ``imdct_head_state_from_jax``
+   map the JAX trees of one module each (the encoder of either branch, the
+   generic Transformer, the Vocos variants) to that module's state dict;
  - ``generator_state_from_jax`` / ``discriminator_state_from_jax`` map the
    JAX HiFi-GAN trees (weight-normed ``v`` (W, I, O) and ``g``; spectral-
    normed ``w`` with its ``u`` / ``v_vec``) to ``models.hifigan``'s state
@@ -20,11 +24,14 @@ The port's modules are named after the reference's state-dict keys, so
  - ``save_training_state`` / ``load_training_state`` are the counterpart of
    ``save_orbax`` / ``load_orbax`` for the trainer's full state.  A save
    writes a temporary file and renames it over the target, so a process
-   killed mid-save never leaves a checkpoint that looks complete.
+   killed mid-save never leaves a checkpoint that looks complete;
+   ``state_digest`` hashes such a state, so a resumed process can show that
+   it holds what the file holds.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Dict, Mapping
 
@@ -115,22 +122,58 @@ def _vocos(p: dict) -> dict:
             "head": {"out": _linear(p["head"])}}
 
 
+def _encoder(enc: Mapping) -> dict:
+    return {"conv1": _conv(enc["conv1"]), "conv2": _conv(enc["conv2"]), "layers": _layers(enc["layers"]),
+            "layer_norm": _ln(enc["ln"])}
+
+
+def _flat(nested: dict) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _flatten("", nested, out)
+    return out
+
+
+def encoder_state_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX encoder tree ({"conv1", "conv2", "layers", "ln"}; acoustic or
+    semantic) -> ``models.transformer.Encoder`` state dict."""
+    return _flat(_encoder(tree))
+
+
+def generic_transformer_state_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX generic Transformer tree ({"layers", "ln"}) -> ``GenericTransformer`` state dict."""
+    return _flat({"layers": _layers(tree["layers"]), "layer_norm": _ln(tree["ln"])})
+
+
+def resnet_backbone_state_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``convert_vocos_resnet_backbone`` tree -> ``VocosResNetBackbone`` state
+    dict; a gamma (C,) becomes the reference's (C, 1)."""
+    blocks = {}
+    for i, block in enumerate(tree["resnet"]):
+        blocks[str(i)] = {"convs1": {str(j): _conv(c) for j, c in enumerate(block["convs1"])},
+                          "convs2": {str(j): _conv(c) for j, c in enumerate(block["convs2"])}}
+        if any(g is not None for g in block["gamma"]):
+            blocks[str(i)]["gamma"] = {str(j): _t(np.asarray(g).reshape(-1, 1)) for j, g in enumerate(block["gamma"])}
+    return _flat({"embed": _conv(tree["embed"]), "resnet": blocks})
+
+
+def imdct_head_state_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``convert_imdct_head`` tree -> ``IMDCTSymExpHead`` / ``IMDCTCosHead`` state dict."""
+    return _flat({"out": _linear(tree["out"])})
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """JAX package parameter tree (numpy leaves) -> the port's state dict
     (load it with ``SimWhisperCodec.load_state_dict``)."""
     enc, dec = tree["encoder"], tree["decoder"]
     nested = {
-        "acoustic_encoder": {"conv1": _conv(enc["conv1"]), "conv2": _conv(enc["conv2"]),
-                             "layers": _layers(enc["layers"]), "layer_norm": _ln(enc["ln"])},
+        "acoustic_encoder": _encoder(enc),
         "downsample": _sampler(tree["downsample"], "in_proj", "to_latent"),
         "upsample": _sampler(tree["upsample"], "from_latent", "to_stacked"),
         "acoustic_decoder": {"layers": _layers(dec["layers"]), "layer_norm": _ln(dec["ln"]),
                              "deconv1": _deconv(dec["deconv1"]), "deconv2": _deconv(dec["deconv2"])},
         "vocos": _vocos(tree["vocos"]),
     }
-    out: Dict[str, torch.Tensor] = {}
-    _flatten("", nested, out)
-    return out
+    return _flat(nested)
 
 
 def _hifigan_conv(p: Mapping, perm) -> dict:
@@ -155,9 +198,7 @@ def generator_state_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                                      for j, rb in enumerate(stage)}
                             for i, stage in enumerate(tree["resblocks"])},
               "conv_post": _hifigan_conv(tree["conv_post"], _CONV)}
-    out: Dict[str, torch.Tensor] = {}
-    _flatten("", nested, out)
-    return out
+    return _flat(nested)
 
 
 def discriminator_state_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -168,9 +209,7 @@ def discriminator_state_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     nested = {"mpd": {str(i): sub(d, _CONV2D) for i, d in enumerate(tree["mpd"])},
               "msd": {str(i): sub(d, _CONV) for i, d in enumerate(tree["msd"])}}
-    out: Dict[str, torch.Tensor] = {}
-    _flatten("", nested, out)
-    return out
+    return _flat(nested)
 
 
 def save_training_state(path: str, state: dict) -> None:
@@ -186,6 +225,32 @@ def save_training_state(path: str, state: dict) -> None:
 def load_training_state(path: str, map_location=None) -> dict:
     """A state written by ``save_training_state``."""
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def state_digest(state) -> str:
+    """SHA-256 of a nested training state (dicts in key order, lists, tensors by
+    dtype, shape and bytes, other leaves by ``repr``): equal digests mean
+    equal states, bit for bit, whatever device the tensors are on."""
+    h = hashlib.sha256()
+
+    def visit(x) -> None:
+        if isinstance(x, Mapping):
+            for k in sorted(x, key=str):
+                h.update(f"<{k!r}>".encode())
+                visit(x[k])
+        elif isinstance(x, (list, tuple)):
+            h.update(f"[{len(x)}]".encode())
+            for v in x:
+                visit(v)
+        elif isinstance(x, torch.Tensor):
+            t = x.detach().to("cpu").contiguous()
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.numpy().tobytes())
+        else:
+            h.update(repr(x).encode())
+
+    visit(state)
+    return h.hexdigest()
 
 
 def _fold_weight_norm(sd: Mapping[str, torch.Tensor], prefix: str):
@@ -213,10 +278,14 @@ def reference_state_dict(sd: Mapping[str, torch.Tensor], model: torch.nn.Module)
     return out
 
 
-def load_reference_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Read a reference ``.pt`` (optionally under a ``"model"`` key) into ``model``."""
+def load_reference_checkpoint(model: torch.nn.Module, path: str, prefix: str = "") -> torch.nn.Module:
+    """Read a reference ``.pt`` (optionally under a ``"model"`` key) into
+    ``model``; with ``prefix`` (e.g. ``"acoustic_encoder."``) only the keys
+    under it, the prefix removed."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "model" in ckpt:
         ckpt = ckpt["model"]
+    if prefix:
+        ckpt = {k[len(prefix):]: v for k, v in ckpt.items() if k.startswith(prefix)}
     model.load_state_dict(reference_state_dict(ckpt, model), strict=True)
     return model
