@@ -53,7 +53,18 @@ Phases, any failure exits non-zero:
      ``HifiGanConfig(768, 512)`` at batch 32 x 8960), a fresh process
      resuming from epoch 3's checkpoint with its state bit for bit, and
      HuBERT-base feature extraction; the HiFi-GAN generator card against CPU;
-  7. print the kernel table, the GPU's name and power limit, and the result.
+  7. the tools (``tools_phase``): the FLOP ledger's FLOPs per audio second
+     and MFU per mode (phase 3's batch times over the card's dense bf16
+     peak); a ``torch.profiler`` trace of one fast-int8 tokenize +
+     detokenize (``utils/profiling``) that must name its regions and the
+     B1-B3 kernels; ``python -m simwhisper_codec_tpu_torch.tools.release_check
+     --dry_run --corpus_n 8`` with phase 4's towers (must be ready); the
+     drill's checkpoint loaded in process in its mode, on its files (launch
+     counts, bitrate, reconstructions byte for byte, checksum report); the
+     CLI twins (``evaluate_model``,
+     ``calculate_wer``, ``spk_sim_cal``, ``extract_spk_emb``,
+     ``calculate_utmos``) as children on the card against the drill's report;
+  8. print the kernel table, the GPU's name and power limit, and the result.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -575,7 +586,7 @@ def codec_phase(torch, cfg, model):
         precision_check(torch, codecs[label], label, batch, utts, codes_by_run[label])
     pcm16_check(torch, cfg, model, codecs["fast-int8"], utts)
     streaming_check(torch, cfg, codecs["fast-int8"])
-    return launches_by_run, codecs["fast-int8"]
+    return launches_by_run, codecs["fast-int8"], results
 
 
 # parity runs with an f32 attention kernel -> the wrapper that launches it
@@ -909,7 +920,7 @@ def padded_vs_exact(torch, towers: dict, wav: np.ndarray) -> dict:
             "embedding": tower_err(spk.embed(wav), exact_emb)}
 
 
-def eval_phase(torch, cfg, codec) -> None:
+def eval_phase(torch, cfg, codec, weights: Path) -> None:
     """The quality evaluation on the card (``eval_corpus.py --full-report``):
     synthetic tower weights at the published widths written by the port's
     tool; a synthetic corpus of 8 FLAC utterances of 4-8 s (seed 0) through
@@ -918,7 +929,8 @@ def eval_phase(torch, cfg, codec) -> None:
     for the time; each tower timed warm, after one call per bucket); each tower on the card against the CPU on a 4 s
     utterance, and bucket-padded against exact length on the card; the
     trainer's held-out probe (``--smoke --steps 4 --eval_every 2``) in a
-    child process."""
+    child process.  The towers are written into ``weights`` (phase 7 reads
+    them there)."""
     from simwhisper_codec_tpu_torch import eval_corpus
     from simwhisper_codec_tpu_torch.ops import _cuda
     from simwhisper_codec_tpu_torch.tools import make_synthetic_tower_weights as tool
@@ -927,8 +939,6 @@ def eval_phase(torch, cfg, codec) -> None:
     gpu = gpu_line()
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
-        weights = tmp / "towers"
-        weights.mkdir()
         for make, path in ((tool.make_hubert_ctc, weights / "hubert_ctc"),
                            (tool.make_wavlm_ecapa, weights / "wavlm_large_finetune.pth"),
                            (tool.make_utmos, weights / "utmos22_strong.ckpt")):
@@ -1037,6 +1047,264 @@ def serve_and_cli_phase(torch, cfg, model):
                 except subprocess.TimeoutExpired:
                     proc.kill()
                     proc.wait()
+
+
+# -- phase 7: the FLOP ledger, a profiler trace, the release drill and the CLI twins --
+
+TOOLS = "simwhisper_codec_tpu_torch.tools"
+DRILL_FILES = 8
+# what each mode's matmuls run in (MFU divides all of them by the bf16 peak)
+MODE_PRECISION = {"parity": "f32, TF32 off", "fast": "bf16",
+                  "fast-int8": "bf16 tokenize; int8 decoder and Vocos FFNs"}
+# trace event names of each hand kernel of the fast-int8 path (kernel names in csrc/)
+TRACE_KERNELS = {
+    "B1": ("pflash_sm90_kernel",),
+    "B2": ("ln_ffn_bf16_rows_kernel", "ln_ffn_bf16_up_kernel", "ln_ffn_bf16_down_kernel"),
+    "B3": ("ln_ffn_int8_rows_kernel", "ln_ffn_int8_upmax_kernel", "ln_ffn_int8_upq_kernel", "ln_ffn_int8_down_kernel"),
+}
+
+
+def flops_ledger(torch, cfg, stage_ms: dict, gpu: str) -> None:
+    """Ledger FLOPs per audio second (``utils/flops.py``: one 30 s chunk's
+    matmul and convolution FLOPs over 30 s) and MFU = the batch's ledger
+    FLOPs per second (8 chunks over phase 3's tokenize + detokenize ms)
+    over the card's dense bf16 peak, for parity, fast and fast-int8.  The
+    denominator is the bf16 peak for every mode, so each mode's line also
+    names the precision its matmuls run in: parity's f32 and fast-int8's
+    int8 FFNs have other peaks."""
+    from simwhisper_codec_tpu_torch.utils.flops import codec_flops, peak_tflops
+
+    ledger = codec_flops(cfg)
+    peak = peak_tflops(torch.cuda.get_device_name(0))
+    assert peak > 0, f"no dense bf16 peak known for {torch.cuda.get_device_name(0)}"
+    out = {"gpu": gpu, "peak_tflops_bf16": peak, "flops_per_chunk": ledger["total"],
+           "flops_per_audio_sec": ledger["total"] / cfg.max_audio_seconds, "modes": {}}
+    for mode, precision in MODE_PRECISION.items():
+        s = (stage_ms[mode]["tokenize_ms"] + stage_ms[mode]["detokenize_ms"]) / 1e3
+        out["modes"][mode] = {"batch8_s": s, "mfu": 8 * ledger["total"] / s / (peak * 1e12), "precision": precision}
+    log(f"[tools] FLOP ledger: {json.dumps(out)}")
+
+
+def trace_check(torch, cfg, codec, out_dir: Path) -> None:
+    """One fast-int8 ``inference_tokenize`` + ``inference_detokenize`` of a
+    batch of 8 x 30 s traced with ``utils/profiling.trace``, each stage in an
+    ``annotate`` region and timed by ``StageTimer``: the trace file names the
+    two regions and every pass of B1, B2 and B3, and the launches are the
+    ones ``expected_launches`` gives for one chunk each way."""
+    from simwhisper_codec_tpu_torch.ops import _cuda
+    from simwhisper_codec_tpu_torch.utils import profiling
+
+    batch = np.random.default_rng(8).standard_normal((8, cfg.chunk_samples)).astype(np.float32) * 0.1
+    lens = np.full(len(batch), batch.shape[1])
+    tok = codec.inference_tokenize(batch, lens)  # warm
+    codec.inference_detokenize(tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy())
+    timer, anchor = profiling.StageTimer(sync=True), torch.zeros(1, device=codec.device)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    with profiling.trace(str(out_dir)):
+        with timer.stage("tokenize", block_on=anchor), profiling.annotate("fast-int8.tokenize"):
+            tok = codec.inference_tokenize(batch, lens)
+        codes, code_lens = tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy()
+        with timer.stage("detokenize", block_on=anchor), profiling.annotate("fast-int8.detokenize"):
+            codec.inference_detokenize(codes, code_lens)
+    launches = dict(_cuda.launch_counts)
+    want = expected_launches("fast-int8", cfg, 1, 1)
+    assert launches == want, f"traced launches {launches} != {want}"
+    files = sorted(out_dir.glob("*.pt.trace.json"))
+    assert len(files) == 1, files
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    missing = [r for r in ("fast-int8.tokenize", "fast-int8.detokenize") if r not in names]
+    missing += [f"{b}:{frag}" for b, frags in TRACE_KERNELS.items() for frag in frags
+                if not any(frag in k for k in kernels)]
+    assert not missing, f"the trace does not name {missing}"
+    found = {b: sum(1 for e in events if e.get("cat") == "kernel" and any(f in e.get("name", "") for f in frags))
+             for b, frags in TRACE_KERNELS.items()}
+    log(f"[tools] trace {files[0].name} ({files[0].stat().st_size} bytes, {len(events)} events): regions "
+        f"fast-int8.tokenize / fast-int8.detokenize, kernel events {json.dumps(found)}; launches {json.dumps(launches)}; "
+        f"StageTimer (traced, synchronised):\n{timer.report()}")
+
+
+def drill_codec_check(torch, cfg, config_path: str, work: Path, readiness: dict, tmp: Path) -> None:
+    """The drill's codec in process: its ``.pt`` through
+    ``AudioCodec.load_from_checkpoint`` in the corpus stage's mode (fast) on
+    the corpus stage's files, with the launches ``expected_launches``
+    predicts (one batch: one chunk each way), the child's bitrate (its code
+    frames) and reconstructions (byte for byte: the WAVs decoded from its
+    codes), and the checksum report the loader logs equal to the load
+    stage's file."""
+    import logging
+
+    from simwhisper_codec_tpu_torch.eval.corpus import evaluate_corpus
+    from simwhisper_codec_tpu_torch.models.codec import AudioCodec
+    from simwhisper_codec_tpu_torch.ops import _cuda
+    from simwhisper_codec_tpu_torch.utils import checkpoint
+
+    records = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = records.append
+    ck_logger = logging.getLogger(checkpoint.__name__)
+    prev_level = ck_logger.level
+    ck_logger.addHandler(handler)
+    ck_logger.setLevel(logging.INFO)
+    try:
+        codec = AudioCodec.load_from_checkpoint(config_path, readiness["codec_checkpoint"],
+                                                batch_size=8, mode="fast", device="cuda")
+    finally:
+        ck_logger.removeHandler(handler)
+        ck_logger.setLevel(prev_level)
+    reports = [r.getMessage().split("\n", 1)[1] for r in records if "tensor report" in r.getMessage()]
+    assert len(reports) == 1, [r.getMessage()[:200] for r in records]
+    assert reports[0] + "\n" == (work / "checksums.txt").read_text(), "logged checksum report != checksums.txt"
+    recon = tmp / "drill_in_process"
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    stats = evaluate_corpus(codec, str(work / "corpus_out" / "synthetic_corpus"), str(recon), batch_size=8)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launch_counts)
+    want = expected_launches("fast", cfg, 1, 1)
+    assert stats["files"] == DRILL_FILES and stats["num_batches"] == 1, stats
+    assert launches == want, f"drill codec launches {launches} != {want}"
+    child_bitrate = readiness["stages"]["corpus"]["quality"]["bitrate_bps"]
+    assert stats["bitrate_bps"] == child_bitrate, (stats["bitrate_bps"], child_bitrate)
+    child = work / "corpus_out" / "reconstructed"
+    names = sorted(f.name for f in child.iterdir())
+    assert names == sorted(f.name for f in recon.iterdir()) and len(names) == DRILL_FILES, names
+    differ = [n for n in names if (recon / n).read_bytes() != (child / n).read_bytes()]
+    assert not differ, f"in-process reconstructions differ from the drill's: {differ}"
+    log(f"[tools] drill codec in process (fast, {DRILL_FILES} files, one batch): launches {json.dumps(launches)} == "
+        f"expected_launches('fast', cfg, 1, 1); bitrate {child_bitrate} bps and every reconstruction (byte for "
+        f"byte) == the drill child's; the loader's logged checksum report == checksums.txt "
+        f"({len(reports[0].splitlines())} tensors)")
+    del codec
+
+
+def cli_checks(torch, work: Path, weights: Path, report: dict, tmp: Path) -> None:
+    """The CLI twins as children on the card, on the drill's originals and
+    reconstructions with the phase-4 towers, against the drill's report:
+    host metrics equal at the report's precision (4 decimals); WER (from the
+    printed counts) and SIM (printed to 4 decimals) within 1e-4; UTMOS at
+    its printed precision (3 decimals), and scored in process by the tool's
+    scorer within 1e-4.  The WER references are the originals' own
+    transcripts, as the report scores without transcripts."""
+    from simwhisper_codec_tpu_torch.eval.wer import CTCTranscriber
+    from simwhisper_codec_tpu_torch.tools.utmos.utmos_model import UTMOSScorer
+    from simwhisper_codec_tpu_torch.utils.audio_io import find_audio_files, load_audio
+
+    orig, recon = work / "corpus_out" / "synthetic_corpus", work / "corpus_out" / "reconstructed"
+    asr = CTCTranscriber(str(weights / "hubert_ctc"), device="cuda")
+    lines = [f"{Path(p).stem} {asr.transcribe(load_audio(p, 16000))}" for p in find_audio_files(str(orig))]
+    del asr
+    assert all(len(line.split(" ", 1)) == 2 and line.split(" ", 1)[1] for line in lines), lines
+    (orig / "orig.trans.txt").write_text("\n".join(lines) + "\n")
+    ecapa, utmos = str(weights / "wavlm_large_finetune.pth"), str(weights / "utmos22_strong.ckpt")
+    dirs = ["--original_dir", str(orig), "--synthesized_dir", str(recon)]
+    children = {
+        "evaluate_model": [f"{TOOLS}.base_eval.evaluate_model", *dirs, "--output_json", str(tmp / "eval.json")],
+        "calculate_wer": [f"{TOOLS}.wer.calculate_wer", *dirs, "--model", str(weights / "hubert_ctc")],
+        "spk_sim_cal": [f"{TOOLS}.speaker.spk_sim_cal", *dirs, "--ecapa_checkpoint", ecapa],
+        "extract_spk_emb orig": [f"{TOOLS}.speaker.extract_spk_emb", "--input_dir", str(orig),
+                                 "--emb_dir", str(tmp / "emb_orig"), "--ecapa_checkpoint", ecapa],
+        "extract_spk_emb recon": [f"{TOOLS}.speaker.extract_spk_emb", "--input_dir", str(recon),
+                                  "--emb_dir", str(tmp / "emb_recon"), "--ecapa_checkpoint", ecapa],
+        "calculate_utmos": [f"{TOOLS}.utmos.calculate_utmos", "--input_dir", str(recon), "--ckpt", utmos],
+    }
+    t0 = time.perf_counter()
+    procs = {name: start(["-m", *args], tmp / f"{name.replace(' ', '_')}.log", env=dict(os.environ))
+             for name, args in children.items()}
+    outs, walls = {}, {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = finish(name, proc, tmp / f"{name.replace(' ', '_')}.log", 600)
+            walls[name] = time.perf_counter() - t0
+        npy = start(["-m", f"{TOOLS}.speaker.spk_sim_cal", *dirs, "--orig_emb_dir", str(tmp / "emb_orig"),
+                     "--synth_emb_dir", str(tmp / "emb_recon")], tmp / "spk_npy.log", env=dict(os.environ))
+        procs["spk_sim_cal npy"] = npy
+        outs["spk_sim_cal npy"] = finish("spk_sim_cal npy", npy, tmp / "spk_npy.log", 300)
+        walls["spk_sim_cal npy"] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    q, tw = report["quality"], report["towers"]
+    host = json.loads((tmp / "eval.json").read_text())
+    assert host["num_pairs"] == q["num_pairs"] == DRILL_FILES, (host, q)
+    host_diff = {k: (round(host[k], 4), q[k]) for k in ("stoi", "pesq_wb", "pesq_nb", "si_snr", "snr", "lsd", "mcd")
+                 if round(host[k], 4) != q[k]}
+    assert not host_diff, f"evaluate_model != the drill's host metrics: {host_diff}"
+    m = re.search(r"reconstructed: utterances=(\d+) WER=\S+ \(cor=(\d+) sub=(\d+) del=(\d+) ins=(\d+)\)",
+                  outs["calculate_wer"])
+    assert m and int(m[1]) == DRILL_FILES, outs["calculate_wer"][-2000:]
+    cor, sub, dele, ins = (int(m[i]) for i in range(2, 6))
+    wer = (sub + dele + ins) / max(cor + sub + dele, 1)
+    utmos_printed = float(re.search(rf"UTMOS mean over {DRILL_FILES} files: (\S+)", outs["calculate_utmos"])[1])
+    scorer = UTMOSScorer(utmos, device="cuda")
+    utmos_mean = float(np.mean([scorer.score(load_audio(p, 16000), 16000) for p in find_audio_files(str(recon))]))
+    del scorer
+    sims = {k: float(re.search(rf"SIM mean over {DRILL_FILES} pairs: (\S+)", outs[k])[1])
+            for k in ("spk_sim_cal", "spk_sim_cal npy")}
+    errs = {"wer": abs(wer - tw["wer_rec"] / 100), "utmos": abs(utmos_mean - tw["utmos_rec"]),
+            **{f"sim ({k})": abs(v - tw["speaker_sim"]) for k, v in sims.items()}}
+    # the report rounds WER to 1e-5 (3 decimals of a percentage), UTMOS and
+    # SIM to 1e-4; a SIM printed to 4 decimals can sit one step from it
+    assert all(e <= 1e-4 + 1e-9 for e in errs.values()), errs
+    # the tool prints UTMOS to 3 decimals: within half a step of it and the
+    # report's own rounding
+    assert abs(utmos_printed - tw["utmos_rec"]) <= 5.5e-4 + 1e-9, (utmos_printed, tw["utmos_rec"])
+    log(f"[tools] CLI twins on the card vs the drill's report ({DRILL_FILES} pairs): host metrics equal at 4 "
+        f"decimals; |d| WER {errs['wer']:.3g}, UTMOS {errs['utmos']:.3g} (in process; the child printed "
+        f"{utmos_printed:.3f}), SIM {errs['sim (spk_sim_cal)']:.3g} "
+        f"(files) / {errs['sim (spk_sim_cal npy)']:.3g} (.npy) (tolerance 1e-4); WER {100 * wer:.3f} % "
+        f"(cor={cor} sub={sub} del={dele} ins={ins}), UTMOS {utmos_mean:.5f}, SIM {sims}; side by side, each "
+        f"child done after (s): {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+
+
+def tools_phase(torch, cfg, codec, stage_ms: dict, weights: Path,
+                config_path: str = "config/SimWhisperCodec.yaml") -> None:
+    """Phase 7: the FLOP ledger and MFU per mode, a profiler trace of the
+    serving codec, ``release_check --dry_run --corpus_n 8`` as a child (with
+    phase 4's towers), the drill's codec in process, and the CLI twins."""
+    t_phase = time.perf_counter()
+    gpu = gpu_line()
+    flops_ledger(torch, cfg, stage_ms, gpu)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        trace_check(torch, cfg, codec, tmp / "trace")
+        work = tmp / "drill"
+        t0 = time.perf_counter()
+        drill = start(["-m", f"{TOOLS}.release_check", "--dry_run", "--corpus_n", str(DRILL_FILES),
+                       "--config", config_path, "--workdir", str(work), "--asr_model", str(weights / "hubert_ctc"),
+                       "--utmos_checkpoint", str(weights / "utmos22_strong.ckpt"),
+                       "--ecapa_checkpoint", str(weights / "wavlm_large_finetune.pth")],
+                      tmp / "drill.log", env=dict(os.environ))
+        try:
+            finish("release_check --dry_run", drill, tmp / "drill.log", 600)
+        finally:
+            if drill.poll() is None:
+                drill.kill()
+                drill.wait()
+        drill_s = time.perf_counter() - t0
+        readiness = json.loads((work / "READINESS.json").read_text())
+        stages = readiness["stages"]
+        assert readiness["ready"] and stages["load"]["ok"] and stages["corpus"]["ok"], readiness
+        assert stages["corpus"]["gated_metrics"] == [], stages["corpus"]
+        assert stages["parity"] == {"ok": None, "skipped": "reference repo not mounted",
+                                    "wall_s": stages["parity"]["wall_s"]}, stages["parity"]
+        assert stages["bench"]["ok"] is None and "ROADMAP A.1" in stages["bench"]["skipped"], stages["bench"]
+        report = json.loads(Path(stages["corpus"]["report"]).read_text())
+        log(f"[tools] {gpu}: release_check --dry_run --corpus_n {DRILL_FILES}: ready, {drill_s:.1f} s (the "
+            f".pt of {stages['load']['parameters']} parameters written first); stage wall s "
+            f"{json.dumps({k: v['wall_s'] for k, v in stages.items()})}; parity skipped "
+            f"({stages['parity']['skipped']}); bench skipped ({stages['bench']['skipped']}); corpus quality "
+            f"{json.dumps(stages['corpus']['quality'])}; report timing {json.dumps(report['timing'])}")
+        drill_codec_check(torch, cfg, config_path, work, readiness, tmp)
+        torch.cuda.empty_cache()
+        cli_checks(torch, work, weights, report, tmp)
+    torch.cuda.empty_cache()
+    log(f"[tools] phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- phase 5: training (each run a subprocess: this process initialised cuBLAS
@@ -1729,10 +1997,12 @@ def main() -> int:
     model = init_params(cfg, torch.Generator().manual_seed(0))
     log(f"[codec] full-width random weights: {sum(p.numel() for p in model.parameters())} parameters, "
         f"init {time.perf_counter() - t0:.1f} s")
-    launches, serving_codec = codec_phase(torch, cfg, model)
+    launches, serving_codec, stage_ms = codec_phase(torch, cfg, model)
     corpus_phase(torch, cfg, serving_codec)
-    eval_phase(torch, cfg, serving_codec)
-    serve_and_cli_phase(torch, cfg, model)
+    with tempfile.TemporaryDirectory() as towers:
+        eval_phase(torch, cfg, serving_codec, Path(towers))
+        serve_and_cli_phase(torch, cfg, model)
+        tools_phase(torch, cfg, serving_codec, stage_ms, Path(towers))
     del model, serving_codec
     torch.cuda.empty_cache()
     training_phase(torch)

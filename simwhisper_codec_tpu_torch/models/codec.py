@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -442,9 +443,15 @@ class AudioCodec:
 
     @classmethod
     def load_from_checkpoint(cls, config_path: str, ckpt_path: str, **kwargs) -> "AudioCodec":
-        """Build from a YAML config and a reference ``.pt`` state dict."""
+        """Build from a YAML config and a reference ``.pt`` state dict.  An
+        Orbax params directory (the JAX package's native format) is refused:
+        ``tools/orbax_to_pt.py`` converts it to a ``.pt``."""
         from simwhisper_codec_tpu_torch.utils.checkpoint import load_reference_checkpoint
 
+        if os.path.isdir(ckpt_path):
+            raise ValueError(f"{ckpt_path} is a directory (an Orbax checkpoint?); this loader reads a reference "
+                             "'.pt' state dict: convert it with python tools/orbax_to_pt.py --config "
+                             f"{config_path} --orbax_dir {ckpt_path} --out <file>.pt")
         logger.info("Loading model from %s and %s", config_path, ckpt_path)
         cfg = load_config(config_path)
         model = SimWhisperCodec(cfg)

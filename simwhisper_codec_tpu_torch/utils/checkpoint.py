@@ -26,17 +26,24 @@ The port's modules are named after the reference's state-dict keys, so
    writes a temporary file and renames it over the target, so a process
    killed mid-save never leaves a checkpoint that looks complete;
    ``state_digest`` hashes such a state, so a resumed process can show that
-   it holds what the file holds.
+   it holds what the file holds;
+ - ``param_checksum_report`` is the per-tensor integrity report of the JAX
+   package's ``utils/checkpoint.py::param_checksum_report`` (path, shape,
+   mean, std and the XOR of the float32 words); ``load_reference_checkpoint``
+   logs it at INFO on every load, as the JAX ``load_codec_params`` does.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 
 def _t(a) -> torch.Tensor:
@@ -288,4 +295,32 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str, prefix: str = "
     if prefix:
         ckpt = {k[len(prefix):]: v for k, v in ckpt.items() if k.startswith(prefix)}
     model.load_state_dict(reference_state_dict(ckpt, model), strict=True)
+    if logger.isEnabledFor(logging.INFO):
+        logger.info("checkpoint %s tensor report:\n%s", path, param_checksum_report(model))
     return model
+
+
+def xor32(a: np.ndarray) -> int:
+    """XOR of the float32 words of ``a`` (0 when empty)."""
+    words = np.frombuffer(np.ascontiguousarray(a, np.float32).tobytes(), np.uint32)
+    return int(np.bitwise_xor.reduce(words)) if words.size else 0
+
+
+def param_checksum_report(model_or_state_dict: Union[torch.nn.Module, Mapping[str, torch.Tensor]]) -> str:
+    """Per-tensor integrity report, one line a state-dict entry: key, shape,
+    mean and std (in float64) and ``xor32``, in the JAX package's format, so
+    the reports of two hosts or of the two packages can be compared.  XOR
+    ignores order, so a transposed tensor keeps its ``xor32`` and the XOR of
+    per-layer lines equals the JAX package's stacked leaf's."""
+    sd = model_or_state_dict.state_dict() if isinstance(model_or_state_dict, torch.nn.Module) \
+        else model_or_state_dict
+    lines = []
+    for key, tensor in sd.items():
+        a = tensor.detach().cpu().numpy()
+        f64 = a.astype(np.float64)
+        lines.append(
+            f"{key:64s} {str(list(a.shape)):20s} "
+            f"mean={f64.mean() if a.size else 0.0:+.6e} std={f64.std() if a.size else 0.0:.6e} "
+            f"xor32={xor32(a):08x}"
+        )
+    return "\n".join(lines)
