@@ -64,7 +64,23 @@ Phases, any failure exits non-zero:
      CLI twins (``evaluate_model``,
      ``calculate_wer``, ``spk_sim_cal``, ``extract_spk_emb``,
      ``calculate_utmos``) as children on the card against the drill's report;
-  8. print the kernel table, the GPU's name and power limit, and the result.
+  8. tensor parallelism (``tp_phase``; ``parallel/mesh.py``): B1 / B5 on a
+     rank's local heads (6 and 3 of 12) and the partial modes of B2, B3
+     and B4 (each rank's f32 partial of its slice of I) against their plain
+     versions at the model = 2 and 4 shapes (every rank's; tolerances
+     sized to the partial's own max and mean |plain|), and every rank's
+     partial summed against the unsharded function's f32 output before the
+     residual; the one-process round trips of 8 x 30 s in parity, fast,
+     fast-dw, fast-int8, parity with the f32 B1 / B5 and fast with the
+     chunked and packed impls, then the same sharded over a model group of
+     2, two processes sharing the card over gloo: launches a rank, parity's
+     FSQ input and codes against one process, the fast modes' FSQ input
+     within a one-process kernel swap's difference (``TP_SWAP_FACTOR``),
+     each waveform (decoded from one process's codes) within the same
+     bounds; then the training dry run's production geometry
+     (``parallel/dryrun.py``) on that group.
+     ``--tp_gpus N`` runs the TP part over N cards (NCCL);
+  9. print the kernel table, the GPU's name and power limit, and the result.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -180,25 +196,46 @@ def bound_ms(flops: float, peak: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def compare(torch, name, got, want, atol, rtol=1.6e-2) -> float:
-    """Raise unless the kernel's output is finite and |got - want| <= atol + rtol |want|
-    everywhere; returns the max |got - want|."""
+def compare(torch, name, got, want, atol, rtol=1.6e-2, mean_rtol=None) -> float:
+    """Raise unless the kernel's output is finite, |got - want| <= atol + rtol |want|
+    everywhere and, with ``mean_rtol``, mean |got - want| <= mean_rtol mean |want|;
+    returns the max |got - want|."""
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
-    max_err = float(err.max())
+    max_err, mean_err = float(err.max()), float(err.mean())
     excess = float((err - (atol + rtol * want.float().abs())).max())
+    mean_bound = None if mean_rtol is None else mean_rtol * float(want.float().abs().mean())
     finite = bool(torch.isfinite(got).all())
-    log(f"[kernel] {name}: max_abs_err={max_err:.4g} mean_abs_err={float(err.mean()):.3g} "
-        f"(tolerance |d| <= {atol} + {rtol}*|plain|), worst excess={excess:.4g}, finite={finite}")
-    if not finite or excess > 0:
+    log(f"[kernel] {name}: max_abs_err={max_err:.4g} mean_abs_err={mean_err:.3g} "
+        f"(tolerance |d| <= {atol:.4g} + {rtol}*|plain|, mean |d| <= {mean_bound}), worst excess={excess:.4g}, "
+        f"finite={finite}")
+    if not finite or excess > 0 or (mean_bound is not None and mean_err > mean_bound):
         raise AssertionError(f"{name} disagrees with its plain version")
     return max_err
 
 
+# A partial-mode output (tensor parallelism) is one rank's f32 share of
+# gamma (h W2^T + b2) with no residual, of any scale (gamma ~ 1/24 in the
+# Vocos), so its tolerances follow its own size: max |d| <= PARTIAL_MAX_RTOL
+# max |plain| and mean |d| <= PARTIAL_MEAN_RTOL mean |plain|.  Measured on
+# the H100 (tools/tp_mutation_check.py): max |d| <= 0.46 % of max |plain|
+# (rare bf16 / int8 rounding flips of h), mean |d| <= 2.8e-5 of mean
+# |plain|; with b2 added on every rank the shards' sum is off by 2.0 % of
+# its max and 3.0 % of its mean, with B3 quantising by a rank's own row
+# max a partial by 1.8 % and 0.8 %.
+PARTIAL_MAX_RTOL = 1e-2
+PARTIAL_MEAN_RTOL = 1e-3
+
+
+def partial_tol(torch, want) -> tuple:
+    """(atol, rtol) of a partial-mode check on the plain output ``want``."""
+    return PARTIAL_MAX_RTOL * float(want.float().abs().max()), 0.0
+
+
 def check_kernel(torch, name, kernel, plain, args, atol, rtol, flops, peak, nbytes, replaces, source,
-                 library=None, iters=20, **extra_ms):
+                 library=None, iters=20, mean_rtol=None, **extra_ms):
     """Compare and time one kernel; ``extra_ms`` names further calls timed for context."""
-    max_err = compare(torch, name, kernel(*args), plain(*args), atol, rtol)
+    max_err = compare(torch, name, kernel(*args), plain(*args), atol, rtol, mean_rtol)
     ms = time_ms(torch, lambda: kernel(*args), iters)
     plain_ms = time_ms(torch, lambda: plain(*args), max(2, iters // 4))
     lib_ms = time_ms(torch, library, iters) if library is not None else None
@@ -1955,15 +1992,518 @@ def variants_phase(torch) -> dict:
     return launches
 
 
+# -- phase 8: tensor parallelism (parallel/mesh.py) ------------------------------
+
+TP_CONFIG = "config/SimWhisperCodec.yaml"
+# label -> (mode, attn_impl, vocos_impl) of each TP round trip; the chunked
+# and packed runs' codes are also held to the one-process fast run's
+TP_RUNS = {
+    "parity": ("parity", None, None),
+    "fast": ("fast", None, None),
+    "fast-dw": ("fast", "flash", "fused-dw"),
+    "fast-int8": ("fast-int8", None, None),
+    "parity-pflash": ("parity", "pflash", None),
+    "parity-flash": ("parity", "flash", None),
+    "fast-chunked": ("fast", "chunked:1536:bf16", None),
+    "fast-packed": ("fast", "packed:bf16", None),
+}
+TP_REFERENCE = {"fast-chunked": "fast", "fast-packed": "fast"}
+TP_LENGTHS = (480000, 480000, 480000, 480000, 480000, 400000, 123457, 16000)
+# The bf16 modes' codes move with any rounding change at full width on
+# random weights (in one process on the H100, fast-dw's codes agree 0.946
+# with fast's), and TP's f32 partial sums flip bf16 roundings too.  So a
+# fast mode is held through its FSQ input (the compressed latent whose
+# rounding gives the codes) and its waveform (decoded from one process's
+# codes, so the decoder and Vocos alone differ): TP's max |d| from one
+# process within TP_SWAP_FACTOR times the max |d| between two one-process
+# programs that differ by a bf16 kernel swap, fast-dw (B5, B4) against fast
+# (B1, B2): its encoder on the same audio, its decoder on fast's codes.  The
+# code agreement also stays above the JAX package's floor for a bf16
+# attention kernel's codes (tests/test_fast_mode.py:114).
+TP_SWAP_FACTOR = 2.0
+TP_FAST_AGREEMENT = 0.9
+# Parity (f32): the FSQ input within TP_FSQ_TOL of one process's (it is
+# O(1) a channel); a code then differs only where one process's value lies
+# within that run's own f32 difference of a rounding boundary (measured on
+# the H100: none of 24,000 with dense attention, at most one with the f32
+# kernels); the waveform from one process's codes within
+# TP_PARITY_WAVE_RTOL of its max |y|
+TP_FSQ_TOL = 1e-4
+TP_PARITY_AGREEMENT = 0.999
+TP_PARITY_WAVE_RTOL = 1e-4
+# One decoder layer and one Vocos block of each fast program on one input,
+# sharded against whole: the outputs differ only where the f32 reordering
+# of a sum crosses a rounding boundary, so the layer's update (output -
+# input) is held on its mean |d|, mean |d| <= TP_LAYER_MEAN_RTOL mean
+# |update|: a wrong partial (a bias twice, B3's row max of one rank) moves
+# every row, where the round trips' chaos on random weights hides it.
+TP_LAYER_RUNS = ("fast", "fast-dw", "fast-int8")
+TP_LAYER_MEAN_RTOL = 1e-3
+
+
+def tp_batch(cfg):
+    """8 x 30 s of noise (seed 8), the last three rows shorter (ragged lengths)."""
+    wav = np.random.default_rng(8).standard_normal((8, cfg.chunk_samples)).astype(np.float32) * 0.1
+    lens = np.array(TP_LENGTHS, np.int64)
+    wav[np.arange(cfg.chunk_samples)[None, :] >= lens[:, None]] = 0.0
+    return wav, lens
+
+
+def tp_masks(lens, n_samples: int) -> tuple:
+    """(valid code frames (B, T_code), valid samples of the decoded waveform (B, n_samples))."""
+    frames = np.arange(n_samples // 1280)[None, :] < lens[:, None] // 1280
+    return frames, np.arange(n_samples)[None, :] < lens[:, None] // 1280 * 1280
+
+
+def tp_model(torch, cfg):
+    """Phase 3's full-width random weights (seed 0) on the CPU, the Vocos
+    blocks' biases drawn N(0, 0.02^2) (seed 1; the init zeroes them, which
+    would hide a bias added on every model rank), with the decoder's FFNs
+    and the Vocos chains quantised whole (fast-int8's)."""
+    from simwhisper_codec_tpu_torch.models.codec import init_params
+    from simwhisper_codec_tpu_torch.ops.quant import quantize_stacked_convnext, quantize_stacked_ffn
+
+    model = init_params(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for block in model.vocos.backbone.convnext:
+            for conv in (block.dwconv, block.pwconv1, block.pwconv2):
+                conv.bias.copy_(torch.randn(conv.bias.shape, generator=gen) * 0.02)
+    quantize_stacked_ffn(model.acoustic_decoder.layers)
+    quantize_stacked_convnext(model.vocos.backbone.convnext)
+    return model.eval()
+
+
+def tp_round_trip(torch, model, wav, lens, label, mesh=None, codes_in=None):
+    """``tokenize`` + ``detokenize`` of the batch in run ``label``'s mode, on
+    this data rank's rows and gathered under ``mesh``; the detokenize
+    decodes ``codes_in`` (G, B, T_code) where given, else the tokenize's
+    codes.  Returns codes, waveforms and FSQ inputs (numpy) and the host ms
+    around the synchronised calls."""
+    from simwhisper_codec_tpu_torch.models.codec import detokenize, f32_precision, mode_programs, tokenize
+    from simwhisper_codec_tpu_torch.ops.fsq import compress
+    from simwhisper_codec_tpu_torch.parallel import mesh as pmesh
+
+    mode, attn_impl, vocos_impl = TP_RUNS[label]
+    tok_kw, detok_kw = mode_programs(mode, attn_impl, vocos_impl)
+    rows = slice(None) if mesh is None else pmesh.batch_rows(mesh, len(wav))
+    gather = (lambda t, dim=0: t) if mesh is None else (lambda t, dim=0: pmesh.gather_rows(mesh, t, dim))
+    dev = next(model.parameters()).device
+    w, n = torch.from_numpy(wav[rows]).to(dev), torch.from_numpy(lens[rows]).to(dev)
+    given = None if codes_in is None else torch.from_numpy(codes_in).to(dev)
+    latents = []  # the frame-stack's latent, the FSQ's input
+    hook = model.downsample.register_forward_hook(lambda mod, args, out: latents.append(out[0]))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad(), f32_precision("highest" if mode == "parity" else "default"):
+            tok = tokenize(model, w, n, **tok_kw)
+            codes, clen = gather(tok["codes"], 1), gather(tok["codes_lengths"])
+            dec = codes if given is None else given
+            y = gather(detokenize(model, dec[:, rows], clen[rows], dec.shape[-1], **detok_kw)["y"])
+        torch.cuda.synchronize(dev)
+    finally:
+        hook.remove()
+    ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        fsq_in = gather(compress(model.consts.fsq, latents[0].to(torch.float32)))
+    return codes.cpu().numpy(), y.to(torch.float32).cpu().numpy(), fsq_in.cpu().numpy(), ms
+
+
+def expected_tp_launches(label: str, cfg, model_axis: int) -> dict:
+    """Each rank's launches in one TP round trip (one tokenize, one detokenize of the batch)."""
+    enc, dec, voc = cfg.acoustic_encoder, cfg.acoustic_decoder, cfg.vocos
+    t_shape = f"{enc.d_model}x{enc.encoder_ffn_dim // model_axis}"
+    v_shape = f"{voc.dim}x{voc.intermediate_dim // model_axis}"
+    layers = enc.encoder_layers + dec.decoder_layers
+    mode, attn_impl, vocos_impl = TP_RUNS[label]
+    want = {}
+    if mode == "parity":
+        if attn_impl:
+            want[f"{'pflash' if attn_impl == 'pflash' else 'flash'}_attention_f32"] = layers
+        return want
+    if attn_impl in (None, "flash"):
+        want["flash_attention" if attn_impl == "flash" else "pflash_attention"] = layers
+    if mode == "fast-int8":
+        want[f"ln_ffn_bf16_partial:{t_shape}"] = enc.encoder_layers
+        want[f"ln_ffn_int8_partial:{t_shape}"] = dec.decoder_layers
+        want[f"ln_ffn_int8_partial:{v_shape}"] = voc.num_layers
+    else:
+        want[f"ln_ffn_bf16_partial:{t_shape}"] = layers
+        want[f"{'convnext_dw_partial' if vocos_impl == 'fused-dw' else 'ln_ffn_bf16_partial'}:{v_shape}"] = voc.num_layers
+    return want
+
+
+def tp_layer_checks(torch, full, shard, device) -> dict:
+    """Decoder layer 0 and Vocos block 0 in each program of
+    ``TP_LAYER_RUNS``, this rank's shard over its model group against the
+    whole layer in this process, on one seeded bf16 input (8 x 1500 decoder
+    frames at ``TP_LENGTHS``' lengths, 8 x 3000 Vocos frames): mean |d| of
+    the update (output - input) over the valid rows, over its mean |update|."""
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision, mode_programs
+
+    layers = {"decoder": (full.acoustic_decoder.layers[0].to(device), shard.acoustic_decoder.layers[0]),
+              "vocos": (full.vocos.backbone.convnext[0].to(device), shard.vocos.backbone.convnext[0])}
+    gen, t = torch.Generator().manual_seed(3), max(TP_LENGTHS) // 320
+    dec_x = torch.randn(8, t, layers["decoder"][0].fc1.in_features, generator=gen).to(torch.bfloat16).to(device)
+    voc_x = torch.randn(8, 2 * t, layers["vocos"][0].dwconv.in_channels, generator=gen).to(torch.bfloat16).to(device)
+    lengths = torch.as_tensor(np.array(TP_LENGTHS) // 320, device=device)
+    valid = (torch.arange(t, device=device)[None, :] < lengths[:, None])[..., None]
+    out = {}
+    for label in (r for r in TP_LAYER_RUNS if r in TP_RUNS):
+        detok = mode_programs(*TP_RUNS[label])[1]
+        calls = {"decoder": lambda layer: layer(dec_x, None, lengths, detok["attn_impl"], detok["ffn_impl"]),
+                 "vocos": lambda layer: layer(voc_x, None, detok["vocos_impl"], None)}
+        out[label] = {}
+        for name, (whole, part) in layers.items():
+            x = dec_x if name == "decoder" else voc_x
+            keep = valid if name == "decoder" else torch.ones_like(x[..., :1], dtype=torch.bool)
+            with torch.no_grad(), f32_precision("default"):
+                want, got = (calls[name](layer).float() - x.float() for layer in (whole, part))
+            d = torch.where(keep, got - want, 0.0).abs().sum() / keep.sum() / x.shape[-1]
+            out[label][name] = float(d) / float(torch.where(keep, want, 0.0).abs().sum() / keep.sum() / x.shape[-1])
+    return out
+
+
+def tp_worker(torch, work: Path, model_axis: int, backend: str) -> None:
+    """One rank of a TP group (``--check tp``): the full-width model sharded
+    over ``model_axis``, every run of ``TP_RUNS`` (a warm-up, then the
+    counted, timed round trip, which decodes one process's codes) against
+    the one-process references in ``work``, ``tp_layer_checks``, then the
+    dry run's production geometry; results into ``work/tp_rank<r>.json``."""
+    from simwhisper_codec_tpu_torch.config import load_config
+    from simwhisper_codec_tpu_torch.ops import _cuda
+    from simwhisper_codec_tpu_torch.parallel import dist, dryrun
+    from simwhisper_codec_tpu_torch.parallel import mesh as pmesh
+
+    ctx = dist.init_from_env(torch.device("cuda"), backend)
+    device = dist.local_device(ctx, torch.device("cuda"))
+    mesh = pmesh.make_mesh(model_axis=model_axis)
+    cfg = load_config(TP_CONFIG)
+    full = tp_model(torch, cfg)
+    shard = pmesh.shard_model(full, mesh).to(device)
+    batch = np.load(work / "batch.npz")
+    wav, lens = batch["wav"], batch["lens"]
+    out = {"rank": ctx.rank, "mesh": {"data": mesh.data_size, "model": mesh.model_size}, "backend": backend,
+           "device": str(device), "runs": {}}
+    frames, keep = tp_masks(lens, wav.shape[1])
+    for label in TP_RUNS:
+        ref = np.load(work / f"ref_{label}.npz")
+        held = np.load(work / f"ref_{TP_REFERENCE.get(label, label)}.npz")
+        if backend == "nccl":  # a card a rank: the timed run comes warm
+            tp_round_trip(torch, shard, wav, lens, label, mesh, ref["codes"])
+        _cuda.reset_launch_counts()
+        codes, y, fsq_in, ms = tp_round_trip(torch, shard, wav, lens, label, mesh, ref["codes"])
+        launches = dict(_cuda.launch_counts)
+        fsq_diff = float(np.abs(np.where(frames[..., None], fsq_in - ref["fsq_in"], 0.0)).max())
+        to_boundary = np.abs(ref["fsq_in"] - np.floor(ref["fsq_in"]) - 0.5)  # to the nearest rounding boundary
+        out["runs"][label] = {
+            "ms": ms, "launches": launches, "code_agreement": float(np.mean(codes == held["codes"])),
+            "codes_differing": int(np.sum(codes != held["codes"])), "codes_shape_ok": codes.shape == held["codes"].shape,
+            "finite": bool(np.isfinite(y).all()), "fsq_input_max_abs_diff": fsq_diff,
+            "fsq_inputs_within_that_of_a_boundary": int(np.sum(frames[..., None] & (to_boundary <= fsq_diff))),
+            "wave_max_abs_diff": float(np.abs(np.where(keep, y - ref["y"], 0.0)).max()),
+            "wave_max_abs": float(np.abs(np.where(keep, ref["y"], 0.0)).max()),
+            "distinct_codes": int(len(np.unique(codes)))}
+    out["layers"] = tp_layer_checks(torch, full, shard, device)
+    del shard, full
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)  # the training path (CUBLAS_WORKSPACE_CONFIG from det_env)
+    res = dryrun.run(mesh, device, ("production-geometry",), log=log if ctx.rank == 0 else (lambda msg: None))
+    out["dryrun"] = res
+    (work / f"tp_rank{ctx.rank}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+
+
+def tp_references(torch, cfg, work: Path) -> dict:
+    """The one-process run of every ``TP_RUNS`` round trip on this card (a
+    warm-up, then the timed one), and fast's codes decoded by fast-dw's
+    program (the kernel-swap scale), saved into ``work`` for the ranks;
+    returns ms."""
+    work.mkdir(parents=True, exist_ok=True)
+    wav, lens = tp_batch(cfg)
+    np.savez(work / "batch.npz", wav=wav, lens=lens)
+    model = tp_model(torch, cfg).to("cuda")
+    ms = {}
+    for label in TP_RUNS:
+        tp_round_trip(torch, model, wav, lens, label)
+        codes, y, fsq_in, ms[label] = tp_round_trip(torch, model, wav, lens, label)
+        np.savez(work / f"ref_{label}.npz", codes=codes, y=y, fsq_in=fsq_in)
+    y_swap = tp_round_trip(torch, model, wav, lens, "fast-dw", codes_in=np.load(work / "ref_fast.npz")["codes"])[1]
+    np.save(work / "swap_y.npy", y_swap)
+    del model
+    torch.cuda.empty_cache()
+    return ms
+
+
+def tp_swap_scale(work: Path) -> dict:
+    """The one-process kernel swap's max |d| (fast-dw against fast): FSQ
+    input on the same audio, waveform from fast's codes."""
+    batch, fast, dw = (np.load(work / f) for f in ("batch.npz", "ref_fast.npz", "ref_fast-dw.npz"))
+    frames, keep = tp_masks(batch["lens"], batch["wav"].shape[1])
+    return {"fsq": float(np.abs(np.where(frames[..., None], dw["fsq_in"] - fast["fsq_in"], 0.0)).max()),
+            "wave": float(np.abs(np.where(keep, np.load(work / "swap_y.npy") - fast["y"], 0.0)).max()),
+            "codes": share_equal([dw["codes"]], [fast["codes"]])}
+
+
+def tp_run_failures(label: str, run: dict, swap: dict, where: str) -> list:
+    """Where one TP round trip's codes, FSQ input or waveform are outside
+    this phase's bounds of one process's (an empty list if nowhere)."""
+    if not (run["finite"] and run["codes_shape_ok"]):
+        return [f"TP {where} {label}: waveform finite {run['finite']}, codes' shape as one process's "
+                f"{run['codes_shape_ok']}"]
+    if TP_RUNS[label][0] == "parity":
+        bounds = {"code_agreement": TP_PARITY_AGREEMENT, "fsq_input_max_abs_diff": TP_FSQ_TOL,
+                  "wave_max_abs_diff": TP_PARITY_WAVE_RTOL * run["wave_max_abs"]}
+    else:
+        bounds = {"code_agreement": TP_FAST_AGREEMENT, "fsq_input_max_abs_diff": TP_SWAP_FACTOR * swap["fsq"],
+                  "wave_max_abs_diff": TP_SWAP_FACTOR * swap["wave"]}
+    failures = [f"TP {where} {label}: {key} {run[key]:.4g} > its bound {bounds[key]:.4g}"
+                for key in ("fsq_input_max_abs_diff", "wave_max_abs_diff") if run[key] > bounds[key]]
+    if run["code_agreement"] < bounds["code_agreement"]:
+        failures.append(f"TP {where} {label}: code agreement {run['code_agreement']:.6f} with one process < "
+                        f"{bounds['code_agreement']}")
+    return failures
+
+
+def tp_group(torch, cfg, work: Path, model_axis: int, n_ranks: int, backend: str, one_process_ms: dict) -> dict:
+    """``tp_worker`` over ``n_ranks`` processes: on this one card over gloo
+    (two processes share it), or one card a rank over NCCL (torchrun);
+    checks every rank's results; returns rank 0's."""
+    for old in work.glob("tp_rank*.json"):
+        old.unlink()
+    common = [__file__, "--check", "tp", "--work_dir", str(work), "--tp_model_axis", str(model_axis),
+              "--tp_backend", backend]
+    t0 = time.perf_counter()
+    if backend == "gloo":  # every rank on card 0
+        port = free_port()
+        procs = [start(common, work / f"tp{r}.log", det_env(RANK=str(r), LOCAL_RANK="0", WORLD_SIZE=str(n_ranks),
+                                                             MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))
+                 for r in range(n_ranks)]
+        for r, proc in enumerate(procs):
+            finish(f"TP rank {r}", proc, work / f"tp{r}.log", 900)
+    else:
+        proc = start(["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n_ranks), *common],
+                     work / "tp.log")
+        finish("TP ranks", proc, work / "tp.log", 900)
+    wall = time.perf_counter() - t0
+    results = [json.loads((work / f"tp_rank{r}.json").read_text()) for r in range(n_ranks)]
+    geometry = f"{n_ranks // model_axis} data x {model_axis} model"
+    swap = tp_swap_scale(work)
+    log(f"[tp] one process, for scale: fast-dw against fast (a bf16 kernel swap): codes {swap['codes']:.6f} equal, "
+        f"FSQ input max |d| {swap['fsq']:.4g}, waveforms from fast's codes max |d| {swap['wave']:.4g}; the fast "
+        f"modes' bounds are {TP_SWAP_FACTOR} times these")
+    for label, run in results[0]["runs"].items():
+        held = TP_REFERENCE.get(label, label)
+        log(f"[tp] {geometry} ({backend}) {label}: codes {run['code_agreement']:.6f} equal to one process's "
+            f"{held} ({run['codes_differing']} differ, {run['distinct_codes']} distinct), FSQ input max |d| "
+            f"{run['fsq_input_max_abs_diff']:.4g} ({run['fsq_inputs_within_that_of_a_boundary']} of one process's "
+            f"within that of a rounding boundary), waveforms from one process's codes max |d| "
+            f"{run['wave_max_abs_diff']:.4g} (max |y| {run['wave_max_abs']:.4g}), round trip {run['ms']:.1f} ms "
+            f"(one process {one_process_ms[label]:.1f} ms), launches a rank {json.dumps(run['launches'])}")
+    for label, rel in results[0]["layers"].items():
+        log(f"[tp] {geometry} ({backend}) {label}, one layer on one input, sharded against whole: mean |d| of the "
+            f"update over its mean |update|: decoder layer {rel['decoder']:.3g}, Vocos block {rel['vocos']:.3g} "
+            f"(<= {TP_LAYER_MEAN_RTOL})")
+    dr = results[0]["dryrun"][0]
+    log(f"[tp] {geometry} ({backend}) dry run, production geometry: loss {dr['loss']:.6f} vs {dr['ref_loss']:.6f} "
+        f"(rtol 1e-4), gradients from one cotangent {dr['grad_rel_err']:.3g} at {dr['worst']} (< 2e-3); whole "
+        f"step {dr['step_grad_rel_err']:.3g} (audio {dr['audio_rel_diff']:.3g}, audio cotangent "
+        f"{dr['cotangent_rel_diff']:.3g}), against a second f32 program of the unsharded step ({dr['witness']}): "
+        f"whole step {dr['witness_step_grad_rel_err']:.3g} (audio {dr['witness_audio_rel_diff']:.3g}, audio "
+        f"cotangent {dr['witness_cotangent_rel_diff']:.3g}); replicated grads equal across model ranks, "
+        f"AdamW step {dr['step_ms']:.1f} ms (one process, whole batch of {dr['batch']}: "
+        f"{dr['one_process_step_ms']:.1f} ms); {n_ranks} ranks in {wall:.1f} s")
+    failures = []  # every check, so that a failure names all it broke
+    for res in results:
+        where = f"{geometry} rank {res['rank']}"
+        for label, run in res["runs"].items():
+            want = expected_tp_launches(label, cfg, model_axis)
+            if run["launches"] != want:
+                failures.append(f"TP {where} {label}: launches {run['launches']} != {want}")
+            failures += tp_run_failures(label, run, swap, where)
+        failures += [f"TP {where} {label}: the {name} layer's update differs from the whole layer's by {rel:.3g} of "
+                     f"its mean |update| (> {TP_LAYER_MEAN_RTOL})"
+                     for label, rels in res["layers"].items() for name, rel in rels.items() if rel > TP_LAYER_MEAN_RTOL]
+        dr = res["dryrun"][0]
+        if not (dr["grad_rel_err"] < 2e-3 and dr["replicated_max_diff"] == 0.0):
+            failures.append(f"TP {where} dry run: {dr}")
+    assert not failures, "; ".join(failures)
+    return results[0]
+
+
+def _slice_block(block, mesh):
+    """A copy of a ConvNeXt block holding one model rank's slice of I."""
+    from simwhisper_codec_tpu_torch.models.vocos import ConvNeXtBlock
+    from simwhisper_codec_tpu_torch.parallel.mesh import param_sharding_rules, shard
+
+    c, inter = block.pwconv2.weight.shape
+    part = ConvNeXtBlock(c, inter // mesh.model_size, 1.0).to(block.gamma.device)
+    part.load_state_dict({k: shard(v, param_sharding_rules(k), mesh) for k, v in block.state_dict().items()})
+    return part
+
+
+def tp_kernel_rows(torch) -> list:
+    """B1 / B5 on a rank's local heads (6 of 12 at model = 2, 3 at model =
+    4; bf16 rows, f32 compared only) and the partial modes of B2, B3 and B4
+    on every rank's slice of I, held against their plain versions with
+    tolerances sized to the partial's own scale (``PARTIAL_MAX_RTOL``,
+    ``PARTIAL_MEAN_RTOL``), rank 0's timed; a row a kernel at its model = 2
+    shape, the model = 4 shape's numbers under ``model4``.  Then every
+    rank's partial summed against the unsharded plain function's f32 output
+    before the residual (the partial plain version on all of I, b2 once),
+    B3 with the row max over all of I, as the all-reduce gives it."""
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+    from simwhisper_codec_tpu_torch.ops import flash_attention as fa
+    from simwhisper_codec_tpu_torch.ops import fused_convnext as fc
+    from simwhisper_codec_tpu_torch.ops.quant import quantize_weight
+    from simwhisper_codec_tpu_torch.parallel.mesh import Mesh, shard
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device="cpu").manual_seed(2)
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen) * scale).to(dtype).to(dev)
+
+    def nest(rows4, row):
+        keep = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        row["model4"] = {k: rows4[k] for k in keep if k in rows4}
+        return row
+
+    rows = []
+    b, t, hd = 8, 1500, 64
+    lengths = torch.tensor([1500, 1500, 1211, 900, 640, 333, 17, 0], dtype=torch.int32, device=dev)
+    attn = {}
+    for heads in (6, 3):
+        d = heads * hd
+        qkv = randn(b, t, 3 * d)
+        qkv[..., :d] *= hd ** -0.5
+        flops = sum(4.0 * heads * t * n * hd if n > 0 else 2.0 * heads * t * t * hd for n in lengths.tolist())
+        nbytes = qkv.numel() * 2 + b * t * d * 2 + lengths.numel() * 4
+        q, k, v = head_views(qkv, heads)
+        key_mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        sdpa = lambda q=q, k=k, v=v: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=key_mask,
+                                                                                      scale=1.0)
+        attn[heads] = [
+            check_kernel(torch, f"pflash_attention ({heads} heads)", fa.fused_qkv_attention,
+                         fa.fused_qkv_attention_plain, (qkv, lengths, heads), 1e-2, 1.6e-2, flops, H100_BF16_FLOPS,
+                         nbytes, "simwhisper_codec_tpu/ops/flash_attention.py:162",
+                         "simwhisper_codec_tpu_torch/csrc/pflash.cu", library=sdpa),
+            check_kernel(torch, f"flash_attention ({heads} heads)", fa.flash_attention, fa.flash_attention_plain,
+                         (q, k, v, lengths), 1e-2, 1.6e-2, flops, H100_BF16_FLOPS, nbytes,
+                         "simwhisper_codec_tpu/ops/flash_attention.py:62", "simwhisper_codec_tpu_torch/csrc/flash.cu",
+                         library=sdpa)]
+        q32 = qkv.to(torch.float32)
+        with f32_precision("highest"):
+            compare(torch, f"pflash_attention_f32 ({heads} heads)", fa.fused_qkv_attention(q32, lengths, heads),
+                    fa.fused_qkv_attention_plain(q32, lengths, heads), 1e-5, 1e-5)
+            views = (*head_views(q32, heads), lengths)
+            compare(torch, f"flash_attention_f32 ({heads} heads)", fa.flash_attention(*views),
+                    fa.flash_attention_plain(*views), 1e-5, 1e-5)
+    rows += [nest(r4, r2) for r2, r4 in zip(attn[6], attn[3])]
+
+    for (m, c, inter, eps, vocos) in ((8 * 1500, 768, 3072, 1e-5, False), (8 * 3000, 512, 4096, 1e-6, True)):
+        x = randn(m, c)
+        ln_w, ln_b = randn(c, scale=0.1) + 1.0, randn(c, scale=0.1)
+        w1 = randn(inter, c, scale=c ** -0.5, dtype=torch.float32)
+        w2 = randn(c, inter, scale=inter ** -0.5, dtype=torch.float32)
+        b1, b2 = randn(inter, scale=0.02), randn(c, scale=0.02)
+        gamma = randn(c, scale=0.01) + 1.0 / 24 if vocos else None
+        w1b, w2b = w1.to(bf), w2.to(bf)
+        (w1q, s1), (w2q, s2) = quantize_weight(w1), quantize_weight(w2)  # whole, then sliced
+        h = fc.fused_ln_ffn_int8_up_plain(x, ln_w, ln_b, w1q, s1, b1, eps)
+        hmax_bits = h.abs().amax(-1).view(torch.int32)
+        del h
+        hook = lambda local: local.copy_(hmax_bits)  # the all-reduce (MAX) over the group, as its result
+        int8_kernel = lambda *a: fc.ln_ffn_int8_partial(*a, reduce_max=hook)
+        int8_plain = lambda *a: fc.fused_ln_ffn_int8_partial_plain(*a, reduce_max=hook)
+        kinds = [("ln_ffn_bf16_partial", fc.ln_ffn_partial, fc.fused_ln_ffn_partial_plain,
+                  lambda g: (x, ln_w, ln_b, shard(w1b, 0, g), shard(b1, 0, g), shard(w2b, 1, g),
+                             fc.rank_bias(b2, g.model_rank == 0), gamma, eps),
+                  "simwhisper_codec_tpu/ops/fused_convnext.py:38", "simwhisper_codec_tpu_torch/csrc/ln_ffn.cu"),
+                 ("ln_ffn_int8_partial", int8_kernel, int8_plain,
+                  lambda g: (x, ln_w, ln_b, shard(w1q, 0, g), shard(s1, 0, g), shard(b1, 0, g), shard(w2q, 1, g), s2,
+                             fc.rank_bias(b2, g.model_rank == 0), gamma, eps),
+                  "simwhisper_codec_tpu/ops/fused_convnext.py:296", "simwhisper_codec_tpu_torch/csrc/ln_ffn_int8.cu")]
+        if vocos:
+            x4 = x.reshape(8, 3000, c)
+            block = random_block(torch, randn, c, inter)
+            kinds.append(("convnext_dw_partial", fc.convnext_dw_partial, fc.fused_convnext_block_dw_partial_plain,
+                          lambda g: (x4, _slice_block(block, g), 2875, 1e-6,
+                                     fc.rank_bias(block.pwconv2.bias, g.model_rank == 0)),
+                          "simwhisper_codec_tpu/ops/fused_convnext.py:195",
+                          "simwhisper_codec_tpu_torch/csrc/convnext_dw.cu"))
+        found = {}
+        for k in (2, 4):
+            loc = inter // k
+            meshes = [Mesh(1, k, 0, r) for r in range(k)]
+            ops = 4.0 * m * c * loc
+            act = m * c * 2 + m * c * 4  # x read, the f32 partial written
+            cost = {"ln_ffn_bf16_partial": (ops, H100_BF16_FLOPS, act + 2 * c * loc * 2 + (2 * c + loc) * 2),
+                    "ln_ffn_int8_partial": (ops, H100_INT8_OPS, act + 2 * c * loc + (loc + c) * 4 + (2 * c + loc) * 2),
+                    "convnext_dw_partial": (ops + 14.0 * m * c, H100_BF16_FLOPS,
+                                            act + 2 * c * loc * 2 + (7 * c + 5 * c + loc) * 2)}
+            found[k] = []
+            for name, kernel, plain, rank_args, replaces, source in kinds:
+                name = f"{name}:{c}x{loc}"
+                args = [rank_args(g) for g in meshes]
+                found[k].append(check_kernel(torch, name, kernel, plain, args[0], *partial_tol(torch, plain(*args[0])),
+                                             *cost[name.split(":")[0]], replaces, source, iters=10,
+                                             mean_rtol=PARTIAL_MEAN_RTOL))
+                for r, a in enumerate(args[1:], 1):
+                    compare(torch, f"{name} rank {r}", kernel(*a), plain(*a), *partial_tol(torch, plain(*a)),
+                            mean_rtol=PARTIAL_MEAN_RTOL)
+                # every rank's partial summed against the unsharded function before the residual
+                whole = plain(*rank_args(Mesh(1, 1, 0, 0)))
+                compare(torch, f"{name} x{k} summed", sum(kernel(*a) for a in args), whole,
+                        *partial_tol(torch, whole), mean_rtol=PARTIAL_MEAN_RTOL)
+        rows += [nest(r4, r2) for r2, r4 in zip(found[2], found[4])]
+    return rows
+
+
+def tp_phase(torch, cfg, work: Path) -> tuple:
+    """Phase 8: ``tp_kernel_rows``, the one-process references, then a
+    model group of 2 as two processes sharing this card over gloo (every
+    kernel on the card, the transport the host's); returns the kernel rows
+    and rank 0's launches by run."""
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        rows = tp_kernel_rows(torch)
+    torch.cuda.empty_cache()
+    one_process_ms = tp_references(torch, cfg, work)
+    first = tp_group(torch, cfg, work, 2, 2, "gloo", one_process_ms)
+    log(f"[tp] phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows, {label: run["launches"] for label, run in first["runs"].items()}
+
+
+def tp_gpus_phase(torch, n_gpus: int, work: Path) -> None:
+    """``--tp_gpus N``: the one-process references on card 0, then the TP
+    ranks one card each over NCCL at (1 data x N model) and, for N = 4,
+    (2 x 2)."""
+    from simwhisper_codec_tpu_torch.config import load_config
+
+    cfg = load_config(TP_CONFIG)
+    log(f"[tp] {gpu_line()} (x{torch.cuda.device_count()})")
+    one_process_ms = tp_references(torch, cfg, work)
+    for model_axis in ((n_gpus, 2) if n_gpus == 4 else (n_gpus,)):
+        tp_group(torch, cfg, work, model_axis, n_gpus, "nccl", one_process_ms)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dp_gpus", type=int, default=0,
                     help="run only the data-parallel checks (dp_phase) over this many GPUs")
     ap.add_argument("--discriminator_timing", action="store_true",
                     help="run only discriminator_timing, deterministic kernels against cuDNN autotuning")
-    ap.add_argument("--check", choices=("card-vs-cpu", "dp"), default=None,
-                    help="one check of phase 5, as the full run starts it in a child process")
-    ap.add_argument("--work_dir", default=None, help="scratch directory of --dp_gpus / --check dp")
+    ap.add_argument("--tp_gpus", type=int, default=0,
+                    help="run only the tensor-parallel serving and dry-run checks of phase 8 over this many GPUs "
+                         "(NCCL; at 4: 1 data x 4 model, then 2 x 2)")
+    ap.add_argument("--check", choices=("card-vs-cpu", "dp", "tp"), default=None,
+                    help="one check of phase 5 or 8, as the full run starts it in a child process")
+    ap.add_argument("--work_dir", default=None, help="scratch directory of --dp_gpus / --tp_gpus / --check dp|tp")
+    ap.add_argument("--tp_model_axis", type=int, default=2, help="--check tp: ranks of the model axis")
+    ap.add_argument("--tp_backend", choices=("gloo", "nccl"), default="gloo",
+                    help="--check tp: the process-group backend (gloo: ranks may share a card)")
     args = ap.parse_args()
     import torch
 
@@ -1976,12 +2516,19 @@ def main() -> int:
     if args.check == "dp":
         dp_worker(torch, Path(args.work_dir))
         return 0
+    if args.check == "tp":
+        tp_worker(torch, Path(args.work_dir), args.tp_model_axis, args.tp_backend)
+        return 0
     if args.discriminator_timing:
         discriminator_timing(torch, ("deterministic", "autotuned", "autotuned", "deterministic"))
         return 0
     if args.dp_gpus:
         with tempfile.TemporaryDirectory() as tmp:
             dp_phase(torch, args.dp_gpus, Path(args.work_dir or tmp))
+        return 0
+    if args.tp_gpus:
+        with tempfile.TemporaryDirectory() as tmp:
+            tp_gpus_phase(torch, args.tp_gpus, Path(args.work_dir or tmp))
         return 0
     from simwhisper_codec_tpu_torch.config import load_config
     from simwhisper_codec_tpu_torch.models.codec import init_params
@@ -2007,11 +2554,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     training_phase(torch)
     launches.update(variants_phase(torch))
+    with tempfile.TemporaryDirectory() as work:
+        tp_rows, tp_launches = tp_phase(torch, cfg, Path(work))
     for row in rows:  # launches on the serving default's path, else on the first run that launched it
         row["launches"] = next((launches[r][row["name"]] for r in ("fast-int8", "fast", "fast-flash-dw",
                                                                   "parity-pflash", "parity-flash")
                                 if launches[r].get(row["name"])), 0)
         row["launches_by_run"] = {r: launches[r].get(row["name"], 0) for r in launches}
+    for row in tp_rows:  # launches on a rank of phase 8's model group of 2 (the first TP run that launched it)
+        key = row["name"].split(" (")[0]
+        row["launches"] = next((n[key] for n in tp_launches.values() if n.get(key)), 0)
+        row["launches_by_run"] = {f"tp-{r}": n.get(key, 0) for r, n in tp_launches.items()}
+        assert row["launches"] > 0, f"{row['name']} was not launched on the TP path"
+    rows += tp_rows
     print(gpu_line())  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

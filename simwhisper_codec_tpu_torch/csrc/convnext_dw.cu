@@ -30,7 +30,11 @@
 //      and stores xn = bf16(LN(xdw)) -> workspace (B T, C).  Memory-bound:
 //      x read once (halos from L2), xn written once.
 //   2. convnext_dw_up_kernel: h = bf16(GELU(xn W1^T + b1)) -> workspace (B T, I);
-//   3. convnext_dw_down_kernel: out = bf16(x + gamma (h W2^T + b2)).
+//   3. convnext_dw_down_kernel: out = bf16(x + gamma (h W2^T + b2)), or
+//      under tensor parallelism convnext_dw_down_partial_kernel: the f32
+//      partial gamma (h W2^T + b2) of one rank's slice of I, the residual
+//      added by the wrapper after the ranks' sum (the rows pass runs whole
+//      on every rank: C is not sharded).
 // The pass kernels are B2's, instantiated here under B4's names.
 #include "ffn_bf16.cuh"
 
@@ -38,6 +42,7 @@ namespace {
 
 using ffn_bf16::Bf16;
 using ffn_bf16::DownEpilogue;
+using ffn_bf16::PartialDownEpilogue;
 using ffn_bf16::UpEpilogue;
 
 constexpr int TAPS = 7;
@@ -113,6 +118,7 @@ __global__ void __launch_bounds__(ROWS_THREADS, 2) convnext_dw_rows_kernel(
 
 FFN_PASS_KERNEL(convnext_dw_up_kernel, Bf16, UpEpilogue)
 FFN_PASS_KERNEL(convnext_dw_down_kernel, Bf16, DownEpilogue)
+FFN_PASS_KERNEL(convnext_dw_down_partial_kernel, Bf16, PartialDownEpilogue)
 
 template <int NT>
 int rows_pass(const void* x, const void* dw_w, const void* dw_b, const void* ln_w, const void* ln_b, void* xn,
@@ -143,8 +149,9 @@ int rows_pass_any(int C, const void* x, const void* dw_w, const void* dw_b, cons
 
 }  // namespace
 
-// Passes, a bit each (1 rows, 2 up, 4 down; the wrapper runs all three, a
-// timer one at a time).  x and out (B, T, C), dw_w (7, C), W1 (I, C), W2
+// Passes, a bit each (1 rows, 2 up, 4 down, 8 partial down: out f32 and b2
+// may be null; the wrapper runs rows, up and one of the downs, a timer one
+// at a time).  x and out (B, T, C), dw_w (7, C), W1 (I, C), W2
 // (C, I) and the bf16 vectors contiguous; C a multiple of 64 up to 768, I a
 // multiple of 32, 0 <= frame_valid <= T; xn (B T, C) and h (B T, I) bf16
 // workspaces; g_* the tensor-map geometries of xn, W1, h and W2
@@ -161,6 +168,7 @@ extern "C" int convnext_dw_bf16(const void* x, const void* dw_w, const void* dw_
   if (err == 0)
     err = ffn_bf16::up_down_passes(
         convnext_dw_up_kernel<ffn_sm90::UP_BN>, [](auto bn) { return convnext_dw_down_kernel<decltype(bn)::value>; },
-        xn, w1, b1, h, w2, b2, gamma, x, out, B * T, C, I, g_xn, g_w1, g_h, g_w2, passes, s);
+        [](auto bn) { return convnext_dw_down_partial_kernel<decltype(bn)::value>; }, xn, w1, b1, h, w2, b2, gamma, x,
+        out, B * T, C, I, g_xn, g_w1, g_h, g_w2, passes, s);
   return err;
 }

@@ -17,7 +17,9 @@
 //   1. ln_ffn_bf16_rows_kernel: LN in f32 (warp_layer_norm, one warp a row),
 //      xn = bf16(LN(x)) -> workspace (M, C);
 //   2. ln_ffn_bf16_up_kernel: h = bf16(GELU(xn W1^T + b1)) -> workspace (M, I);
-//   3. ln_ffn_bf16_down_kernel: out = bf16(res + gamma (h W2^T + b2)).
+//   3. ln_ffn_bf16_down_kernel: out = bf16(res + gamma (h W2^T + b2)), or
+//      under tensor parallelism ln_ffn_bf16_down_partial_kernel: the f32
+//      partial gamma (h W2^T + b2) of one rank's slice of I (csrc/ffn_bf16.cuh).
 // The rounding points are the plain version's: xn and h to bf16, out once.
 #include "ffn_bf16.cuh"
 
@@ -25,6 +27,7 @@ namespace {
 
 using ffn_bf16::Bf16;
 using ffn_bf16::DownEpilogue;
+using ffn_bf16::PartialDownEpilogue;
 using ffn_bf16::UpEpilogue;
 
 constexpr int ROWS_THREADS = 256;  // 8 warps, one row each
@@ -44,6 +47,7 @@ __global__ void __launch_bounds__(ROWS_THREADS) ln_ffn_bf16_rows_kernel(
 
 FFN_PASS_KERNEL(ln_ffn_bf16_up_kernel, Bf16, UpEpilogue)
 FFN_PASS_KERNEL(ln_ffn_bf16_down_kernel, Bf16, DownEpilogue)
+FFN_PASS_KERNEL(ln_ffn_bf16_down_partial_kernel, Bf16, PartialDownEpilogue)
 
 template <int NT>
 int rows_pass(const void* x, const void* ln_w, const void* ln_b, void* xn, int M, float eps, cudaStream_t s) {
@@ -69,8 +73,10 @@ int rows_pass_any(int C, const void* x, const void* ln_w, const void* ln_b, void
 
 }  // namespace
 
-// Passes, a bit each (1 rows, 2 up, 4 down; the wrapper runs all three, a
-// timer one at a time).  C a multiple of 64 up to 768, I a multiple of 32;
+// Passes, a bit each (1 rows, 2 up, 4 down, 8 partial down; the wrapper
+// runs rows, up and one of the downs, a timer one at a time).  In the
+// partial mode `out` is (M, C) f32 and b2 may be null, res is not read.
+// C a multiple of 64 up to 768, I a multiple of 32;
 // x, res, the bf16 vectors and the (I, C) W1 / (C, I) W2 contiguous bf16;
 // xn (M, C) and h (M, I) bf16 workspaces; g_* the tensor-map geometries of
 // xn, W1, h and W2 (ops/fused_convnext.py::ffn_tile_maps).  Returns 0, or
@@ -86,6 +92,7 @@ extern "C" int ln_ffn_bf16(const void* x, const void* res, const void* ln_w, con
   if (err == 0)
     err = ffn_bf16::up_down_passes(
         ln_ffn_bf16_up_kernel<ffn_sm90::UP_BN>, [](auto bn) { return ln_ffn_bf16_down_kernel<decltype(bn)::value>; },
-        xn, w1, b1, h, w2, b2, gamma, res, out, M, C, I, g_xn, g_w1, g_h, g_w2, passes, s);
+        [](auto bn) { return ln_ffn_bf16_down_partial_kernel<decltype(bn)::value>; }, xn, w1, b1, h, w2, b2, gamma,
+        res, out, M, C, I, g_xn, g_w1, g_h, g_w2, passes, s);
   return err;
 }

@@ -29,6 +29,13 @@
 //      (M, I) s8, hs = hmax / 127 (1 for a zero row);
 //   4. ln_ffn_int8_down_kernel: the s8 product hq W2q^T;
 //      out = res + gamma ((acc hs) s2 + b2).
+// Under tensor parallelism W1q's rows (with s1, b1) and W2q's columns are
+// one rank's slice of I.  The row max of h must still run over all of I:
+// the wrapper launches passes 1-2, all-reduces hmax (MAX, as int32: the
+// bits of non-negative floats order as integers) over the model group,
+// then launches pass 3 and ln_ffn_int8_down_partial_kernel, which writes
+// the f32 partial gamma ((acc hs) s2 + b2), b2 on one rank only; the
+// wrapper sums the ranks' partials and adds the residual, rounding once.
 // Division by a scale is correctly rounded (a true IEEE division for xq; for
 // hq a per-row reciprocal and one exact-remainder correction) and rounding
 // is half to even, as in the JAX kernel; h and the rescales use explicitly
@@ -189,9 +196,44 @@ struct DownEpilogue {
   }
 };
 
+// pass 4 of the partial mode: f32 out = gamma ((acc hs) s2 + b2), (M, N = C);
+// b2 may be null (adds nothing)
+struct PartialDownEpilogue {
+  static constexpr int STAGED_ITEM = 0;
+  const unsigned* hmax;
+  const float* s2;
+  const bf16 *b2, *gamma;
+  float* out;
+  int M, N;
+  FFN_EPILOGUE_APPLY(int)
+  template <int BN, bool CLIP>
+  __device__ __forceinline__ void body(const int (&d)[BN / 2], const ffn_sm90::Frag& f) const {
+    const bool in[2] = {f.row < M, f.row + 8 < M};
+    const float hs[2] = {in[0] ? row_scale(hmax, f.row) : 1.f, in[1] ? row_scale(hmax, f.row + 8) : 1.f};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = f.col + 8 * j;  // even, so out + o is 8-byte aligned
+      if (CLIP && c >= N) continue;
+      const float sc[2] = {s2[c], s2[c + 1]};
+      const float bb[2] = {b2 ? bf(b2[c]) : 0.f, b2 ? bf(b2[c + 1]) : 0.f};
+      const float g[2] = {bf(gamma[c]), bf(gamma[c + 1])};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (!in[r]) continue;
+        float y[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          y[e] = __fmul_rn(g[e], __fadd_rn(__fmul_rn(__fmul_rn((float)d[4 * j + 2 * r + e], hs[r]), sc[e]), bb[e]));
+        *reinterpret_cast<float2*>(&out[(size_t)(f.row + 8 * r) * N + c]) = make_float2(y[0], y[1]);
+      }
+    }
+  }
+};
+
 FFN_PASS_KERNEL(ln_ffn_int8_upmax_kernel, S8, UpMaxEpilogue)
 FFN_PASS_KERNEL(ln_ffn_int8_upq_kernel, S8, UpQuantEpilogue)
 FFN_PASS_KERNEL(ln_ffn_int8_down_kernel, S8, DownEpilogue)
+FFN_PASS_KERNEL(ln_ffn_int8_down_partial_kernel, S8, PartialDownEpilogue)
 
 template <int NT>
 int rows_pass(const void* x, const void* ln_w, const void* ln_b, void* xq, void* xs, void* hmax, int M, float eps,
@@ -218,8 +260,10 @@ int rows_pass_any(int C, const void* x, const void* ln_w, const void* ln_b, void
 
 }  // namespace
 
-// Passes, a bit each (1 rows, 2 up-max, 4 up-quantise, 8 down; the wrapper
-// runs all four, a timer one at a time).  C a multiple of 64 up to 768, I a
+// Passes, a bit each (1 rows, 2 up-max, 4 up-quantise, 8 down, 16 partial
+// down: out (M, C) f32, b2 may be null, res not read; the wrapper runs all
+// but one of the downs, in one launch, or in two around the hmax reduction
+// under tensor parallelism; a timer one at a time).  C a multiple of 64 up to 768, I a
 // multiple of 64; x, res and the bf16 vectors contiguous bf16, W1q (I, C)
 // and W2q (C, I) contiguous int8, s1 (I,) and s2 (C,) f32; workspaces xq
 // (M, C) int8, xs (M,) f32, hmax (M,) 32-bit, hq (M, I) int8; g_* the
@@ -237,6 +281,7 @@ extern "C" int ln_ffn_int8(const void* x, const void* res, const void* ln_w, con
   const UpArgs up{(const float*)xs, (const float*)s1, (const bf16*)b1, (unsigned*)hmax, M, I};
   constexpr int UP_BN = ffn_sm90::UP_BN;
   if (err == 0 && (passes & 6) && g_w1[11] != UP_BN) err = (int)cudaErrorInvalidValue;
+  if (err == 0 && (passes & 24) == 24) err = (int)cudaErrorInvalidValue;
   if (err == 0 && (passes & 2))
     err = ffn_sm90::launch_pass<S8, UP_BN>(ln_ffn_int8_upmax_kernel<UP_BN>, xq, g_xq, w1q, g_w1, nullptr, nullptr,
                                            {M, I, C}, UpMaxEpilogue{up}, s);
@@ -250,6 +295,15 @@ extern "C" int ln_ffn_int8(const void* x, const void* res, const void* ln_w, con
       constexpr int BN = decltype(bn)::value;
       return ffn_sm90::launch_pass<S8, BN>(ln_ffn_int8_down_kernel<BN>, hq, g_hq, w2q, g_w2, nullptr, nullptr,
                                            {M, C, I}, epi, s);
+    });
+  }
+  if (err == 0 && (passes & 16)) {
+    const PartialDownEpilogue epi{(const unsigned*)hmax, (const float*)s2, (const bf16*)b2, (const bf16*)gamma,
+                                  (float*)out, M, C};
+    err = ffn_sm90::with_block_n(g_w2[11], [&](auto bn) {
+      constexpr int BN = decltype(bn)::value;
+      return ffn_sm90::launch_pass<S8, BN>(ln_ffn_int8_down_partial_kernel<BN>, hq, g_hq, w2q, g_w2, nullptr,
+                                           nullptr, {M, C, I}, epi, s);
     });
   }
   return err;

@@ -34,6 +34,12 @@ the ranks of a ``torch.distributed`` group and gathers the result.
 
 ``training_forward`` is the trainer's forward (``train/``): dense f32, the
 FSQ round straight-through, mel features in, no virtual edge.
+
+``tokenize``, ``detokenize`` and ``training_forward`` also run on a rank's
+shard of the model (``parallel.mesh.shard_model``, tensor parallelism):
+activations are replicated over the model group, each sharded layer
+reduces its partial sums, and the caller splits the batch over the data
+axis (``parallel.mesh.batch_rows`` / ``gather_rows``).
 """
 
 from __future__ import annotations
@@ -175,15 +181,17 @@ def mode_programs(mode: str, attn_impl: Optional[str] = None, vocos_impl: Option
     """(tokenize kwargs, detokenize kwargs) of a serving mode.
 
     ``attn_impl``: ``dense``, ``pflash`` or ``flash`` (default: ``dense`` in
-    parity, ``pflash`` otherwise).  ``vocos_impl``: ``fused`` (default) or
+    parity, ``pflash`` otherwise), or the JAX package's spellings
+    ``pflash:<block>`` (B1), ``packed[:bf16]`` and ``chunked[:<block_q>[:bf16]]``
+    (``transformer.parse_attn_impl``).  ``vocos_impl``: ``fused`` (default) or
     ``fused-dw`` in ``fast``; parity runs the exact-GELU chain and takes
     None; in the int8 modes the int8 chain runs whatever is given, as the
     JAX package's ``int8_vocos`` does.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if attn_impl is not None and attn_impl not in transformer.ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {transformer.ATTN_IMPLS}, got {attn_impl!r}")
+    if attn_impl is not None:
+        transformer.parse_attn_impl(attn_impl)  # raises ValueError on an unknown spelling
     if vocos_impl is not None and (vocos_impl not in FAST_VOCOS_IMPLS or mode == "parity"):
         raise ValueError(f"vocos_impl must be None or, outside parity mode, one of {FAST_VOCOS_IMPLS}; "
                          f"got {vocos_impl!r} in mode {mode!r}")

@@ -11,9 +11,17 @@ Attention impls: ``dense`` (additive +1.0 / f32-min pair bias, parity
 mode's default), ``pflash`` (packed QKV + the ``csrc/pflash.cu`` core) and
 ``flash`` (per-head q, k, v + the ``csrc/flash.cu`` core, weights normalised
 before the value product); on f32 activations (parity mode) the two run the
-f32 cores of ``csrc/attn_f32.cu``.  FFN impls:
-``dense`` (exact GELU), ``fused`` (``csrc/ln_ffn.cu``) and ``int8-fused``
-(``csrc/ln_ffn_int8.cu``; needs ``ops.quant.quantize_stacked_ffn``).
+f32 cores of ``csrc/attn_f32.cu``.  ``packed`` and ``chunked`` are the JAX
+package's two XLA impls in plain PyTorch (key-side bias, scores in f32 or,
+with ``:bf16``, in bf16); ``parse_attn_impl`` reads the JAX spellings.  FFN
+impls: ``dense`` (exact GELU), ``fused`` (``csrc/ln_ffn.cu``) and
+``int8-fused`` (``csrc/ln_ffn_int8.cu``; needs
+``ops.quant.quantize_stacked_ffn``).
+
+Under tensor parallelism (``parallel/mesh.py::shard_model``) a layer holds
+its local heads and its slice of the FFN width and a ``model_group``: its
+``out_proj`` and ``fc2`` partial sums are reduced over that group for every
+impl.  A layer without a group runs the one-process code.
 
 ``Encoder`` also runs the semantic branch (``is_acoustic=False``: exact
 GELU after each conv, then the sinusoidal positions) and returns the hidden
@@ -33,9 +41,35 @@ from torch.nn import functional as F
 
 from simwhisper_codec_tpu_torch.config import DecoderConfig, EncoderConfig
 from simwhisper_codec_tpu_torch.ops.conv import conv1d, conv_transpose1d
+from simwhisper_codec_tpu_torch.parallel.mesh import copy_to_model, row_parallel
 
-ATTN_IMPLS = ("dense", "pflash", "flash")
+ATTN_IMPLS = ("dense", "pflash", "flash", "packed", "chunked")
+# the spellings the JAX package accepts (codec.py's serving defaults among them)
+ATTN_SPELLINGS = ("dense", "flash", "pflash[:<block>]", "packed[:bf16]", "chunked[:<block_q>[:bf16]]")
 FFN_IMPLS = ("dense", "fused", "int8-fused")
+
+
+def parse_attn_impl(spec) -> Tuple[str, dict]:
+    """An attention spelling -> (impl, options).  ``pflash:<block>`` runs
+    B1 (the block is the JAX kernel's TPU tiling, which B1 does not take);
+    ``packed[:bf16]`` and ``chunked[:<block_q>[:bf16]]`` (block_q default
+    128) give ``score_dtype`` (f32 unless ``:bf16``) and ``block_q``."""
+    parts = spec.split(":") if isinstance(spec, str) else [spec]
+    kind, rest = parts[0], parts[1:]
+    positive = lambda v: v.isdigit() and int(v) > 0
+    ok = {"dense": not rest, "flash": not rest,
+          "pflash": len(rest) <= 1 and all(map(positive, rest)),
+          "packed": rest in ([], ["bf16"]),
+          "chunked": len(rest) <= 2 and all(map(positive, rest[:1])) and rest[1:] in ([], ["bf16"])}.get(kind, False)
+    if not ok:
+        raise ValueError(f"attn_impl must be one of {ATTN_SPELLINGS}, got {spec!r}")
+    opts = {}
+    if kind == "packed":
+        opts["score_dtype"] = torch.bfloat16 if rest else torch.float32
+    elif kind == "chunked":
+        opts["block_q"] = int(rest[0]) if rest else 128
+        opts["score_dtype"] = torch.bfloat16 if len(rest) > 1 else torch.float32
+    return kind, opts
 
 
 def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> torch.Tensor:
@@ -77,28 +111,107 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
 
 
 class SelfAttention(nn.Module):
-    """q/k/v/out projections; k has no bias (Whisper convention)."""
+    """q/k/v/out projections; k has no bias (Whisper convention).
+
+    ``num_heads`` are the heads this module holds (a model rank's share
+    under tensor parallelism) and ``head_dim`` their width, fixed at
+    construction: q/k/v project to ``num_heads * head_dim``."""
 
     def __init__(self, d: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = d // num_heads
+        self.model_group = None
         self.q_proj = nn.Linear(d, d)
         self.k_proj = nn.Linear(d, d, bias=False)
         self.v_proj = nn.Linear(d, d)
         self.out_proj = nn.Linear(d, d)
 
+    def heads(self, z: torch.Tensor) -> torch.Tensor:
+        """(B, T, H hd) -> (B, H, T, hd)."""
+        b, t, _ = z.shape
+        return z.reshape(b, t, self.num_heads, self.head_dim).transpose(1, 2)
+
+    def merge(self, o: torch.Tensor) -> torch.Tensor:
+        """(B, H, T, hd) -> (B, T, H hd)."""
+        b, _, t, _ = o.shape
+        return o.transpose(1, 2).reshape(b, t, self.num_heads * self.head_dim)
+
+    def project(self, o: torch.Tensor, bias_after: bool = False) -> torch.Tensor:
+        """(B, T, H hd) attention output -> out_proj: the whole projection
+        (its bias in the product, or with ``bias_after`` added to the
+        rounded product, as the kernel wrappers of the JAX package add it),
+        or under tensor parallelism this rank's partial reduced over the
+        model group, the bias added once (``parallel.mesh.row_parallel``)."""
+        if self.model_group is not None:
+            return row_parallel(o, self.out_proj, self.model_group)
+        if not bias_after:
+            return linear(o, self.out_proj)
+        b, t, width = o.shape
+        return F.linear(o.reshape(b * t, width), self.out_proj.weight.to(o.dtype)).reshape(b, t, -1) \
+            + self.out_proj.bias.to(o.dtype)
+
     def dense(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         """Dense attention with the additive pair bias (modules.py:145-187)."""
-        b, t, d = x.shape
-        hd = d // self.num_heads
-        q = linear(x, self.q_proj) * hd ** -0.5
+        q = linear(x, self.q_proj) * self.head_dim ** -0.5
         k = linear(x, self.k_proj)
         v = linear(x, self.v_proj)
-        q, k, v = (z.reshape(b, t, self.num_heads, hd).transpose(1, 2) for z in (q, k, v))
+        q, k, v = (self.heads(z) for z in (q, k, v))
         scores = (q @ k.transpose(-1, -2)).to(torch.float32) + bias
         weights = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = (weights @ v).transpose(1, 2).reshape(b, t, d)
-        return linear(out, self.out_proj)
+        return self.project(self.merge(weights @ v))
+
+
+def _key_bias(lengths: torch.Tensor, t: int, dtype) -> torch.Tensor:
+    """(B, T) key-side bias in ``dtype``: +1.0 on keys < length, the dtype's minimum elsewhere."""
+    valid = torch.arange(t, device=lengths.device)[None, :] < lengths[:, None]
+    return torch.where(valid, torch.tensor(1.0, dtype=dtype, device=lengths.device),
+                       torch.tensor(torch.finfo(dtype).min, dtype=dtype, device=lengths.device))
+
+
+def _scores_softmax(q, k, kbias, score_dtype) -> torch.Tensor:
+    """softmax(q k^T + bias) formed in ``score_dtype`` (the products summed in
+    f32 and rounded once, as ``preferred_element_type`` gives them), soft-maxed
+    op by op in that dtype as ``jax.nn.softmax`` does."""
+    scores = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)).to(score_dtype)
+    scores = scores + kbias[:, None, None, :]
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def chunked_attention(attn: SelfAttention, x: torch.Tensor, lengths: torch.Tensor, block_q: int = 128,
+                      score_dtype=torch.float32) -> torch.Tensor:
+    """The JAX package's ``chunked_attention`` (transformer.py:102-153): q
+    padded to a multiple of ``block_q`` and taken a block at a time, each a
+    (B, H, block_q, T) score tile; key-side bias; output projection."""
+    t = x.shape[1]
+    q = (F.linear(x, attn.q_proj.weight.to(x.dtype)) + attn.q_proj.bias.to(x.dtype)) * attn.head_dim ** -0.5
+    k = F.linear(x, attn.k_proj.weight.to(x.dtype))
+    v = F.linear(x, attn.v_proj.weight.to(x.dtype)) + attn.v_proj.bias.to(x.dtype)
+    q, k, v = (attn.heads(z) for z in (q, k, v))
+    t_pad = -(-t // block_q) * block_q
+    q = F.pad(q, (0, 0, 0, t_pad - t))
+    kbias = _key_bias(lengths, t, score_dtype)
+    blocks = [_scores_softmax(q[:, :, i:i + block_q], k, kbias, score_dtype).to(v.dtype) @ v
+              for i in range(0, t_pad, block_q)]
+    return attn.project(attn.merge(torch.cat(blocks, 2)[:, :, :t]))
+
+
+def packed_attention(attn: SelfAttention, x: torch.Tensor, lengths: torch.Tensor,
+                     score_dtype=torch.bfloat16) -> torch.Tensor:
+    """The JAX package's ``packed_attention`` (transformer.py:156-199): one
+    (D, 3 H hd) product for q, k and v, the whole (B, H, T, T) score tensor,
+    key-side bias, output projection."""
+    b, t, d = x.shape
+    width = attn.num_heads * attn.head_dim
+    w = torch.cat([attn.q_proj.weight, attn.k_proj.weight, attn.v_proj.weight], 0).to(x.dtype)
+    qkv = (x.reshape(b * t, d) @ w.t()).reshape(b, t, 3 * width)
+    q = (qkv[..., :width] + attn.q_proj.bias.to(x.dtype)) * attn.head_dim ** -0.5
+    k = qkv[..., width:2 * width]
+    v = qkv[..., 2 * width:] + attn.v_proj.bias.to(x.dtype)
+    q, k, v = (attn.heads(z) for z in (q, k, v))
+    return attn.project(attn.merge(_scores_softmax(q, k, _key_bias(lengths, t, score_dtype), score_dtype)
+                                   .to(v.dtype) @ v))
 
 
 class TransformerLayer(nn.Module):
@@ -106,6 +219,7 @@ class TransformerLayer(nn.Module):
 
     def __init__(self, d: int, num_heads: int, ffn: int):
         super().__init__()
+        self.model_group = None
         self.self_attn_layer_norm = nn.LayerNorm(d)
         self.self_attn = SelfAttention(d, num_heads)
         self.final_layer_norm = nn.LayerNorm(d)
@@ -113,19 +227,23 @@ class TransformerLayer(nn.Module):
         self.fc2 = nn.Linear(ffn, d)
 
     def forward(self, x, bias, lengths, attn_impl: str = "dense", ffn_impl: str = "dense"):
-        h = layer_norm(x, self.self_attn_layer_norm)
-        if attn_impl == "pflash":
+        group = self.model_group
+        kind, opts = parse_attn_impl(attn_impl)
+        h = copy_to_model(layer_norm(x, self.self_attn_layer_norm), group)
+        if kind == "pflash":
             from simwhisper_codec_tpu_torch.ops.flash_attention import varlen_attention_pflash
 
             x = x + varlen_attention_pflash(self.self_attn, h, lengths)
-        elif attn_impl == "flash":
+        elif kind == "flash":
             from simwhisper_codec_tpu_torch.ops.flash_attention import varlen_attention_flash
 
             x = x + varlen_attention_flash(self.self_attn, h, lengths)
-        elif attn_impl == "dense":
-            x = x + self.self_attn.dense(h, bias)
+        elif kind == "packed":
+            x = x + packed_attention(self.self_attn, h, lengths, **opts)
+        elif kind == "chunked":
+            x = x + chunked_attention(self.self_attn, h, lengths, **opts)
         else:
-            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+            x = x + self.self_attn.dense(h, bias)
         b, t, d = x.shape
         xf = x.reshape(b * t, d)
         ln = self.final_layer_norm
@@ -133,16 +251,17 @@ class TransformerLayer(nn.Module):
             from simwhisper_codec_tpu_torch.ops.fused_convnext import fused_ln_ffn
 
             x = fused_ln_ffn(xf, xf, ln.weight, ln.bias, self.fc1.weight, self.fc1.bias,
-                             self.fc2.weight, self.fc2.bias, eps=1e-5).reshape(b, t, d)
+                             self.fc2.weight, self.fc2.bias, eps=1e-5, group=group).reshape(b, t, d)
         elif ffn_impl == "int8-fused":
             from simwhisper_codec_tpu_torch.ops.fused_convnext import fused_ln_ffn_int8
 
             x = fused_ln_ffn_int8(xf, xf, ln.weight, ln.bias, self.fc1_q, self.fc1_s, self.fc1.bias,
-                                  self.fc2_q, self.fc2_s, self.fc2.bias, eps=1e-5).reshape(b, t, d)
+                                  self.fc2_q, self.fc2_s, self.fc2.bias, eps=1e-5, group=group).reshape(b, t, d)
         elif ffn_impl == "dense":
-            h = layer_norm(xf, ln)
+            h = copy_to_model(layer_norm(xf, ln), group)
             h = F.gelu(linear(h, self.fc1), approximate="none")
-            x = x + linear(h, self.fc2).reshape(b, t, d)
+            y = linear(h, self.fc2) if group is None else row_parallel(h, self.fc2, group)
+            x = x + y.reshape(b, t, d)
         else:
             raise ValueError(f"ffn_impl must be one of {FFN_IMPLS}, got {ffn_impl!r}")
         if x.dtype == torch.bfloat16:
@@ -155,7 +274,7 @@ class TransformerLayer(nn.Module):
 
 def run_layers(layers: nn.ModuleList, x, lengths, attn_impl: str, ffn_impl: str, collect: bool = False):
     """The layer stack; with ``collect`` also the list of each layer's input."""
-    bias = attention_bias(lengths, x.shape[1]) if attn_impl == "dense" else None
+    bias = attention_bias(lengths, x.shape[1]) if parse_attn_impl(attn_impl)[0] == "dense" else None
     inputs = []
     for layer in layers:
         if collect:

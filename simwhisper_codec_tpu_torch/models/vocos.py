@@ -14,6 +14,10 @@ depthwise conv and edge mask included, in ``csrc/convnext_dw.cu``) and
 ``"int8"`` (plain depthwise conv, then ``csrc/ln_ffn_int8.cu``; needs
 ``ops.quant.quantize_stacked_convnext``).  The residual of a block is its
 *unmasked* input, as in the JAX package.
+
+Under tensor parallelism (``parallel/mesh.py::shard_model``) a block holds
+its slice of the intermediate width and a ``model_group``; every impl
+reduces the ``pwconv2`` partial sums over that group.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from simwhisper_codec_tpu_torch.models.sampling import trunc_normal_
 from simwhisper_codec_tpu_torch.models.transformer import layer_norm, linear
 from simwhisper_codec_tpu_torch.ops.conv import conv1d, depthwise_conv1d_shifts
 from simwhisper_codec_tpu_torch.ops.stft import ISTFTConstants, istft_same
+from simwhisper_codec_tpu_torch.parallel.mesh import copy_to_model, row_parallel
 
 VOCOS_IMPLS = (None, "fused", "fused-dw", "int8")
 
@@ -42,6 +47,7 @@ def edge_mask(t: int, frame_valid: Optional[int], dtype, device) -> Optional[tor
 class ConvNeXtBlock(nn.Module):
     def __init__(self, dim: int, intermediate: int, layer_scale: float):
         super().__init__()
+        self.model_group = None
         self.dwconv = nn.Conv1d(dim, dim, 7, padding=3, groups=dim)
         self.norm = nn.LayerNorm(dim, eps=1e-6)
         self.pwconv1 = nn.Linear(dim, intermediate)
@@ -51,10 +57,11 @@ class ConvNeXtBlock(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], impl=None,
                 frame_valid: Optional[int] = None) -> torch.Tensor:
         """``mask`` is ``edge_mask`` of ``frame_valid``; ``fused-dw`` reads the bound itself."""
+        group = self.model_group
         if impl == "fused-dw":
             from simwhisper_codec_tpu_torch.ops.fused_convnext import fused_convnext_block_dw
 
-            return fused_convnext_block_dw(x, self, frame_valid, eps=1e-6)
+            return fused_convnext_block_dw(x, self, frame_valid, eps=1e-6, group=group)
         residual = x
         if mask is not None:
             x = x * mask
@@ -66,15 +73,16 @@ class ConvNeXtBlock(nn.Module):
 
             return fused_ln_ffn_int8(xf, rf, self.norm.weight, self.norm.bias, self.pw1_q, self.pw1_s,
                                      self.pwconv1.bias, self.pw2_q, self.pw2_s, self.pwconv2.bias,
-                                     self.gamma, eps=1e-6).reshape(b, t, c)
+                                     self.gamma, eps=1e-6, group=group).reshape(b, t, c)
         if impl == "fused":
             from simwhisper_codec_tpu_torch.ops.fused_convnext import fused_convnext_ffn
 
-            return fused_convnext_ffn(xf, rf, self).reshape(b, t, c)
+            return fused_convnext_ffn(xf, rf, self, group=group).reshape(b, t, c)
         if impl is not None:
             raise ValueError(f"vocos impl must be one of {VOCOS_IMPLS}, got {impl!r}")
-        h = layer_norm(xf, self.norm, eps=1e-6)
-        h = linear(F.gelu(linear(h, self.pwconv1), approximate="none"), self.pwconv2)
+        h = copy_to_model(layer_norm(xf, self.norm, eps=1e-6), group)
+        h = F.gelu(linear(h, self.pwconv1), approximate="none")
+        h = linear(h, self.pwconv2) if group is None else row_parallel(h, self.pwconv2, group)
         return residual + (self.gamma.to(h.dtype) * h).reshape(b, t, c)
 
 

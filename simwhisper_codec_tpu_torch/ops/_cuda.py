@@ -101,24 +101,27 @@ c_int64 = ctypes.c_longlong
 c_float = ctypes.c_float
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """A tensor's device pointer; None is the null pointer (an absent operand)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def launch(lib_name: str, fn_name: str, count_key: str, *args) -> None:
+def launch(lib_name: str, fn_name: str, count_key: Optional[str], *args) -> None:
     """Call ``fn_name`` of library ``lib_name`` (all arguments already ctypes
-    values), raise on a non-zero CUDA error and count the launch."""
+    values), raise on a non-zero CUDA error and count the launch under
+    ``count_key`` (None: a call that a later, counted one completes)."""
     fn = getattr(library(lib_name), fn_name)
     fn.restype = ctypes.c_int
     fn.argtypes = [type(a) for a in args]
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-    launch_counts[count_key] += 1
+    if count_key is not None:
+        launch_counts[count_key] += 1
 
 
 def require(cond: bool, msg: str) -> None:

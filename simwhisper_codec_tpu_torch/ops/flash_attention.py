@@ -18,7 +18,10 @@ tiles the same way and compute with f32 FMAs.  The tensor maps of all
 operands are encoded in C from the geometry that ``tile_map`` computes
 here.  See the kernels' headers for their designs.  Each wrapper launches
 its kernel for a CUDA tensor and runs the plain version for a CPU tensor;
-there is no fallback between the two.
+there is no fallback between the two.  The sublayer wrappers take the head
+count and width from the layer (``num_heads``, ``head_dim``), so under
+tensor parallelism the kernels run on a rank's local heads, and the output
+projection is then that rank's partial, reduced over its model group.
 """
 
 from __future__ import annotations
@@ -28,7 +31,6 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
-from torch.nn import functional as F
 
 from simwhisper_codec_tpu_torch.ops import _cuda
 
@@ -145,21 +147,21 @@ def fused_qkv_attention(qkv: torch.Tensor, lengths: torch.Tensor, num_heads: int
 
 
 def packed_qkv(attn, x: torch.Tensor) -> torch.Tensor:
-    """(B, T, D) -> (B, T, 3D) = x [s Wq | Wk | Wv]^T + [s bq | 0 | bv], s = hd^-1/2,
-    with weights and biases cast to x.dtype as in the JAX wrapper."""
+    """(B, T, D) -> (B, T, 3W) = x [s Wq | Wk | Wv]^T + [s bq | 0 | bv] for the
+    layer's H heads of hd (W = H hd, s = hd^-1/2; under tensor parallelism
+    H is the rank's share), with weights and biases cast to x.dtype as in the
+    JAX wrapper."""
     b, t, d = x.shape
-    scale = (d // attn.num_heads) ** -0.5
+    width = attn.num_heads * attn.head_dim
+    scale = attn.head_dim ** -0.5
     w = torch.cat([attn.q_proj.weight * scale, attn.k_proj.weight, attn.v_proj.weight], 0).to(x.dtype)
     bias = torch.cat([attn.q_proj.bias * scale, torch.zeros_like(attn.q_proj.bias), attn.v_proj.bias]).to(x.dtype)
-    return (x.reshape(b * t, d) @ w.t()).reshape(b, t, 3 * d) + bias
+    return (x.reshape(b * t, d) @ w.t()).reshape(b, t, 3 * width) + bias
 
 
 def varlen_attention_pflash(attn, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Attention sublayer: packed QKV matmul -> attention core -> output projection."""
-    b, t, d = x.shape
-    o = fused_qkv_attention(packed_qkv(attn, x), lengths, attn.num_heads)
-    return F.linear(o.reshape(b * t, d), attn.out_proj.weight.to(x.dtype)).reshape(b, t, d) \
-        + attn.out_proj.bias.to(x.dtype)
+    return attn.project(fused_qkv_attention(packed_qkv(attn, x), lengths, attn.num_heads), bias_after=True)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -222,13 +224,11 @@ def varlen_attention_flash(attn, x: torch.Tensor, lengths: torch.Tensor) -> torc
     q = (x Wq + bq) hd^-1/2, k = x Wk, v = x Wv + bv (one packed product,
     viewed per head by stride), attention core, output projection."""
     b, t, d = x.shape
-    h = attn.num_heads
-    hd = d // h
+    h, hd = attn.num_heads, attn.head_dim
     w = torch.cat([attn.q_proj.weight, attn.k_proj.weight, attn.v_proj.weight], 0).to(x.dtype)
     qkv = (x.reshape(b * t, d) @ w.t()).reshape(b, t, 3, h, hd)
     q = (qkv[:, :, 0] + attn.q_proj.bias.to(x.dtype).reshape(h, hd)) * hd ** -0.5
     k = qkv[:, :, 1]
     v = qkv[:, :, 2] + attn.v_proj.bias.to(x.dtype).reshape(h, hd)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lengths)
-    o = o.transpose(1, 2).reshape(b * t, d)
-    return (o @ attn.out_proj.weight.to(x.dtype).t()).reshape(b, t, d) + attn.out_proj.bias.to(x.dtype)
+    return attn.project(attn.merge(o), bias_after=True)

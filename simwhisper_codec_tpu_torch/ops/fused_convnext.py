@@ -16,6 +16,17 @@ All (M, C) rows; weights in ``nn.Linear`` layout: W1 (I, C), W2 (C, I).
 As in the JAX wrappers, every operand is cast to x.dtype first (the int8
 weight scales stay f32); LN, accumulation and the epilogue are f32; the GELU
 is the tanh approximation.
+
+Tensor parallelism (``group``, a model group of ``parallel/mesh.py``): each
+rank holds a slice of I, so its down product is a partial sum.  The
+partial-mode passes (``ln_ffn_partial``, ``ln_ffn_int8_partial``,
+``convnext_dw_partial``) write the f32 ``gamma (h W2^T + b2)`` of the
+slice, b2 on the group's first rank only, and no residual; the wrapper
+all-reduces them and forms ``bf16(residual + sum)``, rounding once as the
+unsharded kernel does.  B3 quantises h by its row maximum over all of I:
+its rows and up-max passes run first, the ``hmax`` workspace is
+all-reduced (MAX) over the group, then the up-quantise and down passes run.
+Without a group every wrapper runs as in one process.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.nn import functional as F
 
 from simwhisper_codec_tpu_torch.ops import _cuda
@@ -47,9 +59,11 @@ def _gamma(gamma: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return torch.ones(x.shape[-1], dtype=x.dtype, device=x.device) if gamma is None else gamma.to(x.dtype)
 
 
-def _row_quant(v: torch.Tensor):
-    """Per-row absmax int8 quantisation of f32 rows -> (integer-valued f32, scale)."""
-    s = v.abs().amax(-1, keepdim=True) / 127.0
+def _row_quant(v: torch.Tensor, amax: Optional[torch.Tensor] = None):
+    """Per-row absmax int8 quantisation of f32 rows -> (integer-valued f32,
+    scale); ``amax`` (rows, 1) is the rows' absmax where it is known (over
+    all of I when v is one rank's slice)."""
+    s = (v.abs().amax(-1, keepdim=True) if amax is None else amax) / 127.0
     s = torch.where(s == 0, torch.ones_like(s), s)
     return torch.round(v / s), s
 
@@ -60,14 +74,23 @@ def _int_matmul(aq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return (aq.to(torch.float64) @ wq.to(torch.float64).t()).to(torch.float32)
 
 
-def _ln_ffn_chain_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, dt):
-    """The bf16 chain on rows x (any float dtype, normalised in f32), every
-    operand cast to ``dt`` first, output in ``dt``."""
+def _ln_ffn_y_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, dt):
+    """The bf16 chain's f32 gamma (h W2^T + b2) on rows x (any float dtype,
+    normalised in f32), every operand cast to ``dt`` first; b2 None adds no bias."""
     w1, w2 = w1.to(dt).to(torch.float32), w2.to(dt).to(torch.float32)
     xn = _ln_f32(x, ln_w.to(dt), ln_b.to(dt), eps).to(dt).to(torch.float32)
     h = _gelu_tanh(xn @ w1.t() + b1.to(dt).to(torch.float32)).to(dt).to(torch.float32)
-    y = h @ w2.t() + b2.to(dt).to(torch.float32)
-    y = _gamma(gamma, residual).to(torch.float32) * y
+    y = h @ w2.t()
+    if b2 is not None:
+        y = y + b2.to(dt).to(torch.float32)
+    g = torch.ones(w2.shape[0], dtype=dt, device=x.device) if gamma is None else gamma.to(dt)
+    return g.to(torch.float32) * y
+
+
+def _ln_ffn_chain_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, dt):
+    """The bf16 chain on rows x (any float dtype, normalised in f32), every
+    operand cast to ``dt`` first, output in ``dt``."""
+    y = _ln_ffn_y_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, dt)
     return (residual.to(torch.float32) + y).to(dt)
 
 
@@ -76,16 +99,53 @@ def fused_ln_ffn_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma=None, eps=
     return _ln_ffn_chain_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, x.dtype)
 
 
+def fused_ln_ffn_int8_up_plain(x, ln_w, ln_b, w1q, s1, b1, eps=1e-6):
+    """LN -> row quant -> exact s8 product -> rescale -> GELU: the f32 h (M, I)
+    of the int8 chain (what B3's up passes form before quantising it; on a
+    rank's slice of I under tensor parallelism)."""
+    dt = x.dtype
+    xq, xs = _row_quant(_ln_f32(x, ln_w.to(dt), ln_b.to(dt), eps))
+    return _gelu_tanh(_int_matmul(xq, w1q) * xs * s1.to(torch.float32) + b1.to(dt).to(torch.float32))
+
+
+def _int8_y_plain(h, w2q, s2, b2, gamma, dt, amax=None):
+    """row requant of h (by ``amax`` where given) -> exact s8 product -> rescale
+    -> f32 gamma (... + b2); b2 None adds no bias."""
+    hq, hs = _row_quant(h, amax)
+    y = _int_matmul(hq, w2q) * hs * s2.to(torch.float32)
+    if b2 is not None:
+        y = y + b2.to(dt).to(torch.float32)
+    g = torch.ones(w2q.shape[0], dtype=dt, device=h.device) if gamma is None else gamma.to(dt)
+    return g.to(torch.float32) * y
+
+
 def fused_ln_ffn_int8_plain(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma=None, eps=1e-6):
     """int8 chain step by step: LN -> row quant -> exact s8 product -> rescale
     -> GELU -> row requant -> exact s8 product -> rescale -> gamma -> residual."""
-    dt = x.dtype
-    xq, xs = _row_quant(_ln_f32(x, ln_w.to(dt), ln_b.to(dt), eps))
-    h = _int_matmul(xq, w1q) * xs * s1.to(torch.float32) + b1.to(dt).to(torch.float32)
-    hq, hs = _row_quant(_gelu_tanh(h))
-    y = _int_matmul(hq, w2q) * hs * s2.to(torch.float32) + b2.to(dt).to(torch.float32)
-    y = _gamma(gamma, x).to(torch.float32) * y
-    return (residual.to(torch.float32) + y).to(dt)
+    y = _int8_y_plain(fused_ln_ffn_int8_up_plain(x, ln_w, ln_b, w1q, s1, b1, eps), w2q, s2, b2, gamma, x.dtype)
+    return (residual.to(torch.float32) + y).to(x.dtype)
+
+
+def fused_ln_ffn_partial_plain(x, ln_w, ln_b, w1, b1, w2, b2=None, gamma=None, eps=1e-6):
+    """Partial mode of the bf16 chain, step by step: the f32
+    gamma (GELU_tanh(LN(x) W1^T + b1) W2^T + b2) of this rank's slice of I
+    (W1's rows, b1, W2's columns), with b2 on one rank only (None elsewhere)
+    and no residual; (M, C) f32."""
+    return _ln_ffn_y_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, x.dtype)
+
+
+def fused_ln_ffn_int8_partial_plain(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2=None, gamma=None, eps=1e-6,
+                                    reduce_max=None):
+    """Partial mode of the int8 chain, step by step: h of this rank's slice,
+    its rows' |h| max (M,) f32, which ``reduce_max`` (if given) reduces in
+    place through its int32 view (non-negative floats order as their bits),
+    then h quantised by that max, the second product and the f32
+    gamma (... + b2) with b2 on one rank only; (M, C) f32."""
+    h = fused_ln_ffn_int8_up_plain(x, ln_w, ln_b, w1q, s1, b1, eps)
+    hmax = h.abs().amax(-1)
+    if reduce_max is not None:
+        reduce_max(hmax.view(torch.int32))
+    return _int8_y_plain(h, w2q, s2, b2, gamma, x.dtype, hmax[:, None])
 
 
 def _check_rows(x, residual, c_max=768):
@@ -114,9 +174,13 @@ BLOCK_NS = (256, 192, 128)  # the kernels' block widths, widest first
 UP_BLOCK_N = 128
 H100_SMS = 132
 MAX_ROWS = 65535 * ROW_TILE  # row tiles are the grid's y dimension
-# bit of each pass in the C entry points' ``passes`` argument
+# bit of each pass in the C entry points' ``passes`` argument; the partial
+# modes (tensor parallelism) swap the down pass for the f32 partial one
 BF16_PASSES = {"rows": 1, "up": 2, "down": 4}
 INT8_PASSES = {"rows": 1, "up_max": 2, "up_quant": 4, "down": 8}
+BF16_PARTIAL_PASSES = {"rows": 1, "up": 2, "down_partial": 8}
+INT8_PARTIAL_PASSES = {"rows": 1, "up_max": 2, "up_quant": 4, "down_partial": 16}
+HMAX_INDEX = 14  # of the hmax workspace among ``_ln_ffn_int8_args``' tensors
 
 
 def operand_map(x: torch.Tensor, box_rows: int) -> TileMap:
@@ -173,7 +237,18 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _ln_ffn_bf16_args(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, block_ns=None):
+def _out(x, partial: bool) -> torch.Tensor:
+    """The output: like x, or the partial mode's f32 partial sums."""
+    return torch.empty(x.shape, dtype=torch.float32, device=x.device) if partial else torch.empty_like(x)
+
+
+def _bias(b2, n, dtype, device, partial: bool):
+    """The down pass's bias vector; the partial mode takes None (a null pointer) on all but one rank."""
+    _cuda.require(b2 is not None or partial, "b2 may be None only in the partial mode")
+    return None if b2 is None else _vec(b2, n, dtype, device)
+
+
+def _ln_ffn_bf16_args(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, block_ns=None, partial=False):
     """Check the operands and build the argument list of ``ln_ffn_bf16`` (all but ``passes``)."""
     _check_rows(x, residual)
     m, c = x.shape
@@ -186,13 +261,13 @@ def _ln_ffn_bf16_args(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps, block
     ws = ffn_workspaces(m, c, inter, False, dev)
     maps = ffn_tile_maps(ws["xn"], w1c, ws["h"], w2c, _sms(dev), block_ns)
     tensors = [x, residual, _vec(ln_w, c, dt, dev), _vec(ln_b, c, dt, dev), w1c, _vec(b1, inter, dt, dev), w2c,
-               _vec(b2, c, dt, dev), _gamma(gamma, x).contiguous(), torch.empty_like(x), ws["xn"], ws["h"]]
+               _bias(b2, c, dt, dev, partial), _gamma(gamma, x).contiguous(), _out(x, partial), ws["xn"], ws["h"]]
     args = [*map(_cuda.ptr, tensors), _cuda.c_int(m), _cuda.c_int(c), _cuda.c_int(inter), _cuda.c_float(eps),
             *(g.as_c() for g in maps)]
     return args, tensors, f"{c}x{inter}"
 
 
-def _ln_ffn_int8_args(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps, block_ns=None):
+def _ln_ffn_int8_args(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps, block_ns=None, partial=False):
     """Check the operands and build the argument list of ``ln_ffn_int8`` (all but ``passes``)."""
     _check_rows(x, residual)
     m, c = x.shape
@@ -206,8 +281,8 @@ def _ln_ffn_int8_args(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, 
     ws = ffn_workspaces(m, c, inter, True, dev)
     maps = ffn_tile_maps(ws["xq"], w1q, ws["hq"], w2q, _sms(dev), block_ns)
     tensors = [x, residual, _vec(ln_w, c, dt, dev), _vec(ln_b, c, dt, dev), w1q, _vec(s1, inter, torch.float32, dev),
-               _vec(b1, inter, dt, dev), w2q, _vec(s2, c, torch.float32, dev), _vec(b2, c, dt, dev),
-               _gamma(gamma, x).contiguous(), torch.empty_like(x), ws["xq"], ws["xs"], ws["hmax"], ws["hq"]]
+               _vec(b1, inter, dt, dev), w2q, _vec(s2, c, torch.float32, dev), _bias(b2, c, dt, dev, partial),
+               _gamma(gamma, x).contiguous(), _out(x, partial), ws["xq"], ws["xs"], ws["hmax"], ws["hq"]]
     args = [*map(_cuda.ptr, tensors), _cuda.c_int(m), _cuda.c_int(c), _cuda.c_int(inter), _cuda.c_float(eps),
             *(g.as_c() for g in maps)]
     return args, tensors, f"{c}x{inter}"
@@ -218,11 +293,12 @@ def _dw_taps(block, dt):
     return block.dwconv.weight[:, 0, :].t().to(dt), block.dwconv.bias.to(dt)
 
 
-def _convnext_dw_args(x, block, frame_valid=None, eps=1e-6, block_ns=None):
+def _convnext_dw_args(x, block, frame_valid=None, eps=1e-6, b2=None, block_ns=None, partial=False):
     """Check the operands and build the argument list of ``convnext_dw_bf16``
     (all but ``passes``) for x (B, T, C) on any device (``meta`` plans it
     with no storage): the rows pass writes xn over B*T rows, then B2's up
-    and down passes run on the workspaces."""
+    and down passes run on the workspaces.  The down pass adds pwconv2's
+    bias, or in the partial mode ``b2`` (None: no bias)."""
     _cuda.require(x.dtype == torch.bfloat16, f"ConvNeXt kernel takes bfloat16, got {x.dtype}")
     _cuda.require(x.dim() == 3, "x must be a (B, T, C) tensor")
     x = x.contiguous()  # the first block's input is a transposed view of the embedding conv's output
@@ -240,8 +316,8 @@ def _convnext_dw_args(x, block, frame_valid=None, eps=1e-6, block_ns=None):
     maps = ffn_tile_maps(ws["xn"], w1, ws["h"], w2, _sms(dev), block_ns)
     tensors = [x, dw_w.contiguous(), _vec(dw_b, c, dt, dev), _vec(block.norm.weight, c, dt, dev),
                _vec(block.norm.bias, c, dt, dev), w1, _vec(block.pwconv1.bias, inter, dt, dev), w2,
-               _vec(block.pwconv2.bias, c, dt, dev), _vec(block.gamma, c, dt, dev), torch.empty_like(x),
-               ws["xn"], ws["h"]]
+               _bias(b2 if partial else block.pwconv2.bias, c, dt, dev, partial),
+               _vec(block.gamma, c, dt, dev), _out(x, partial), ws["xn"], ws["h"]]
     args = [*map(_cuda.ptr, tensors), *map(_cuda.c_int, (b, t, c, inter, min(fv, t))), _cuda.c_float(eps),
             *(g.as_c() for g in maps)]
     return args, tensors, f"{c}x{inter}"
@@ -251,14 +327,30 @@ _FFN = {  # kind -> (library, C entry point, launch-count key, argument-list fun
     "bf16": ("ln_ffn", "ln_ffn_bf16", "ln_ffn_bf16", _ln_ffn_bf16_args, BF16_PASSES, 9),
     "int8": ("ln_ffn_int8", "ln_ffn_int8", "ln_ffn_int8", _ln_ffn_int8_args, INT8_PASSES, 11),
     "dw": ("convnext_dw", "convnext_dw_bf16", "convnext_dw", _convnext_dw_args, BF16_PASSES, 10),
+    "bf16-partial": ("ln_ffn", "ln_ffn_bf16", "ln_ffn_bf16_partial", functools.partial(_ln_ffn_bf16_args, partial=True),
+                     BF16_PARTIAL_PASSES, 9),
+    "int8-partial": ("ln_ffn_int8", "ln_ffn_int8", "ln_ffn_int8_partial",
+                     functools.partial(_ln_ffn_int8_args, partial=True), INT8_PARTIAL_PASSES, 11),
+    "dw-partial": ("convnext_dw", "convnext_dw_bf16", "convnext_dw_partial",
+                   functools.partial(_convnext_dw_args, partial=True), BF16_PARTIAL_PASSES, 10),
 }
 
 
-def _ffn_launch(kind: str, *operands):
+def _ffn_launch(kind: str, *operands, reduce_max=None, **build_kw):
+    """Launch every pass of ``kind`` on the operands, counted once.  With
+    ``reduce_max`` (B3's partial mode under a model group) the rows and
+    up-max passes launch first, uncounted, then ``reduce_max`` reduces the
+    hmax workspace in place, then the remaining passes launch, counted."""
     lib, fn, key, build, passes, out_index = _FFN[kind]
-    args, tensors, shape = build(*operands)
-    x = tensors[0]
-    _cuda.launch(lib, fn, f"{key}:{shape}", *args, _cuda.c_int(sum(passes.values())), _cuda.stream(x.device))
+    args, tensors, shape = build(*operands, **build_kw)
+    stream = _cuda.stream(tensors[0].device)
+    todo = sum(passes.values())
+    if reduce_max is not None:
+        first = passes["rows"] | passes["up_max"]
+        _cuda.launch(lib, fn, None, *args, _cuda.c_int(first), stream)
+        reduce_max(tensors[HMAX_INDEX])
+        todo -= first
+    _cuda.launch(lib, fn, f"{key}:{shape}", *args, _cuda.c_int(todo), stream)
     return tensors[out_index]
 
 
@@ -283,32 +375,97 @@ def ffn_pass_timers(kind: str, *operands, block_ns: Optional[tuple] = None) -> d
     return {name: functools.partial(run_pass, bit) for name, bit in passes.items()}
 
 
-def fused_ln_ffn(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma=None, eps=1e-6):
+def rank_bias(b2, first: bool):
+    """The partial down pass's bias on a model rank: b2 on the group's first
+    rank, None (no bias) on the others, so the reduced sum holds it once."""
+    return b2 if first else None
+
+
+def _first_rank(group) -> bool:
+    return dist.get_rank(group) == 0
+
+
+def _sum_and_residual(part: torch.Tensor, residual: torch.Tensor, group) -> torch.Tensor:
+    """bf16(residual + the model group's sum of the f32 partials): one rounding, as the unsharded kernel's."""
+    dist.all_reduce(part, group=group)
+    return (residual.to(torch.float32) + part).to(residual.dtype)
+
+
+def ln_ffn_partial(x, ln_w, ln_b, w1, b1, w2, b2=None, gamma=None, eps=1e-6):
+    """Partial mode of B2 on this rank's slice of I: f32 (M, C) as
+    ``fused_ln_ffn_partial_plain``.  A CUDA tensor runs ``csrc/ln_ffn.cu``'s
+    rows, up and partial down passes (one launch count)."""
+    if x.device.type == "cpu":
+        return fused_ln_ffn_partial_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
+    return _ffn_launch("bf16-partial", x, x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
+
+
+def ln_ffn_int8_partial(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2=None, gamma=None, eps=1e-6, reduce_max=None):
+    """Partial mode of B3 on this rank's slice of I: f32 (M, C) as
+    ``fused_ln_ffn_int8_partial_plain``; ``reduce_max`` (in place, on the
+    int32 view of the rows' |h| max) runs between the up-max and the
+    up-quantise passes.  A CUDA tensor runs ``csrc/ln_ffn_int8.cu``'s
+    passes in one launch without ``reduce_max``, two with it (one launch
+    count either way)."""
+    if x.device.type == "cpu":
+        return fused_ln_ffn_int8_partial_plain(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps, reduce_max)
+    return _ffn_launch("int8-partial", x, x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps,
+                       reduce_max=reduce_max)
+
+
+def fused_ln_ffn(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma=None, eps=1e-6, group=None):
     """Fused residual + gamma * (GELU_tanh(LN(x) W1^T + b1) W2^T + b2) over (M, C) rows.
 
     gamma=None is the transformer FFN (gamma = 1, residual = x); the Vocos
     ConvNeXt chain passes its layer scale and the block input as residual.
     A CUDA tensor runs ``csrc/ln_ffn.cu``'s three passes (one launch count).
+    With a model ``group`` the weights are this rank's slice of I: the
+    partial mode, reduced over the group (see the module docstring).
     """
+    if group is not None:
+        part = ln_ffn_partial(x, ln_w, ln_b, w1, b1, w2, rank_bias(b2, _first_rank(group)), gamma, eps)
+        return _sum_and_residual(part, residual, group)
     if x.device.type == "cpu":
         return fused_ln_ffn_plain(x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
     return _ffn_launch("bf16", x, residual, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
 
 
-def fused_convnext_ffn(xdw: torch.Tensor, residual: torch.Tensor, block, eps: float = 1e-6) -> torch.Tensor:
+def fused_convnext_ffn(xdw: torch.Tensor, residual: torch.Tensor, block, eps: float = 1e-6,
+                       group=None) -> torch.Tensor:
     """ConvNeXt pointwise chain of one Vocos block (norm, pwconv1, pwconv2, gamma)."""
     return fused_ln_ffn(xdw, residual, block.norm.weight, block.norm.bias,
                         block.pwconv1.weight, block.pwconv1.bias, block.pwconv2.weight, block.pwconv2.bias,
-                        block.gamma, eps=eps)
+                        block.gamma, eps=eps, group=group)
 
 
-def fused_ln_ffn_int8(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma=None, eps=1e-6):
+def fused_ln_ffn_int8(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma=None, eps=1e-6, group=None):
     """int8 ``fused_ln_ffn`` with pre-quantised weights (ops/quant.py) and
     per-row dynamic activation quantisation inside the kernel.  A CUDA
-    tensor runs ``csrc/ln_ffn_int8.cu``'s four passes (one launch count)."""
+    tensor runs ``csrc/ln_ffn_int8.cu``'s four passes (one launch count).
+    With a model ``group``: the partial mode, the rows' |h| max all-reduced
+    (MAX) over the group between the up passes."""
+    if group is not None:
+        reduce_max = functools.partial(dist.all_reduce, op=dist.ReduceOp.MAX, group=group)
+        part = ln_ffn_int8_partial(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, rank_bias(b2, _first_rank(group)),
+                                   gamma, eps, reduce_max)
+        return _sum_and_residual(part, residual, group)
     if x.device.type == "cpu":
         return fused_ln_ffn_int8_plain(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps)
     return _ffn_launch("int8", x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps)
+
+
+def _dw_sum_plain(x: torch.Tensor, block, frame_valid) -> torch.Tensor:
+    """B4's depthwise sum on x (B, T, C) as (B T, C) f32: rows outside
+    [0, frame_valid) zeroed, summed from the bias with taps 0..6 in order."""
+    b, t, c = x.shape
+    fv = t if frame_valid is None else int(frame_valid)
+    valid = (torch.arange(t, device=x.device) < fv)[None, :, None]
+    xp = F.pad(torch.where(valid, x.to(torch.float32), 0.0), (0, 0, 3, 3))
+    w, bias = (z.to(torch.float32) for z in _dw_taps(block, x.dtype))
+    xdw = bias.expand(b, t, c)
+    for k in range(7):
+        xdw = xdw + xp[:, k:k + t] * w[k]
+    return xdw.reshape(b * t, c)
 
 
 def fused_convnext_block_dw_plain(x: torch.Tensor, block, frame_valid=None, eps: float = 1e-6) -> torch.Tensor:
@@ -316,25 +473,46 @@ def fused_convnext_block_dw_plain(x: torch.Tensor, block, frame_valid=None, eps:
     [0, frame_valid) zeroed, depthwise k7 summed in f32 from the bias with
     taps 0..6 in order, the bf16 chain on that f32 sum (no rounding before
     the LayerNorm), residual = the unmasked x."""
-    dt = x.dtype
     b, t, c = x.shape
-    fv = t if frame_valid is None else int(frame_valid)
-    valid = (torch.arange(t, device=x.device) < fv)[None, :, None]
-    xp = F.pad(torch.where(valid, x.to(torch.float32), 0.0), (0, 0, 3, 3))
-    w, bias = (z.to(torch.float32) for z in _dw_taps(block, dt))
-    xdw = bias.expand(b, t, c)
-    for k in range(7):
-        xdw = xdw + xp[:, k:k + t] * w[k]
-    return _ln_ffn_chain_plain(xdw.reshape(b * t, c), x.reshape(b * t, c), block.norm.weight, block.norm.bias,
-                               block.pwconv1.weight, block.pwconv1.bias, block.pwconv2.weight,
-                               block.pwconv2.bias, block.gamma, eps, dt).reshape(b, t, c)
+    return _ln_ffn_chain_plain(_dw_sum_plain(x, block, frame_valid), x.reshape(b * t, c), block.norm.weight,
+                               block.norm.bias, block.pwconv1.weight, block.pwconv1.bias, block.pwconv2.weight,
+                               block.pwconv2.bias, block.gamma, eps, x.dtype).reshape(b, t, c)
 
 
-def fused_convnext_block_dw(x: torch.Tensor, block, frame_valid=None, eps: float = 1e-6) -> torch.Tensor:
+def fused_convnext_block_dw_partial_plain(x: torch.Tensor, block, frame_valid=None, eps: float = 1e-6,
+                                          b2=None) -> torch.Tensor:
+    """Partial mode of B4, step by step: the depthwise sum and LN of the
+    whole (replicated) C, then the f32 gamma (h W2^T + b2) of this rank's
+    slice of I, ``b2`` (pwconv2's bias) on one rank only (None elsewhere),
+    no residual; (B, T, C) f32."""
+    b, t, c = x.shape
+    return _ln_ffn_y_plain(_dw_sum_plain(x, block, frame_valid), block.norm.weight, block.norm.bias,
+                           block.pwconv1.weight, block.pwconv1.bias, block.pwconv2.weight, b2, block.gamma, eps,
+                           x.dtype).reshape(b, t, c)
+
+
+def convnext_dw_partial(x: torch.Tensor, block, frame_valid=None, eps: float = 1e-6, b2=None):
+    """Partial mode of B4 on this rank's slice of I: f32 (B, T, C) as
+    ``fused_convnext_block_dw_partial_plain``.  A CUDA tensor runs
+    ``csrc/convnext_dw.cu``'s rows, up and partial down passes (one launch count)."""
+    if x.device.type == "cpu":
+        return fused_convnext_block_dw_partial_plain(x, block, frame_valid, eps, b2)
+    _cuda.require(x.device.type == "cuda", f"unsupported device {x.device}")
+    return _ffn_launch("dw-partial", x, block, frame_valid, eps, b2)
+
+
+def fused_convnext_block_dw(x: torch.Tensor, block, frame_valid=None, eps: float = 1e-6,
+                            group=None) -> torch.Tensor:
     """Whole ConvNeXt block of one Vocos layer (depthwise k7 conv with the
     ``frame_valid`` edge mask, LN, pwconv1, GELU, pwconv2, gamma, residual)
     on x (B, T, C).  Any T; ``frame_valid=None`` means T.  A CUDA tensor
-    runs ``csrc/convnext_dw.cu``'s three passes (one launch count)."""
+    runs ``csrc/convnext_dw.cu``'s three passes (one launch count).  With a
+    model ``group``: the partial mode (the depthwise + LN rows pass runs
+    whole on every rank), reduced over the group, the block input added
+    after the reduction."""
+    if group is not None:
+        b2 = rank_bias(block.pwconv2.bias, _first_rank(group))
+        return _sum_and_residual(convnext_dw_partial(x, block, frame_valid, eps, b2), x, group)
     if x.device.type == "cpu":
         return fused_convnext_block_dw_plain(x, block, frame_valid, eps)
     _cuda.require(x.device.type == "cuda", f"unsupported device {x.device}")

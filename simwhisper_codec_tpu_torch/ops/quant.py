@@ -30,6 +30,9 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def _quantize_pair(module, first: str, second: str, tags: Tuple[str, str]) -> None:
     if hasattr(module, f"{tags[0]}_q"):
         return  # idempotent
+    if getattr(module, "model_group", None) is not None:
+        # a slice of fc2 / pwconv2 would give per-channel scales over that slice only
+        raise ValueError("quantise the whole model before parallel.mesh.shard_model, not a shard")
     for lin, tag in ((getattr(module, first), tags[0]), (getattr(module, second), tags[1])):
         q, s = quantize_weight(lin.weight.detach().to(torch.float32))
         module.register_buffer(f"{tag}_q", q, persistent=False)

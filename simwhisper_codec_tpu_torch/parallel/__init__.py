@@ -1,1 +1,1 @@
-"""Data parallelism over ``torch.distributed``."""
+"""Data and tensor parallelism over ``torch.distributed``."""

@@ -13,13 +13,16 @@ Gradients are averaged explicitly after each backward (``average_grads``),
 not through DDP: a GAN step runs two backward passes on two models, and the
 codec's encoder is frozen.  Each rank's loss is the mean over its rows, so
 with equal shards the average of the ranks' gradients is the full batch's.
+A context's ``group`` is the process group it averages and gathers over:
+None for the whole world, the ``data`` group of a ``parallel.mesh.Mesh``
+under tensor parallelism (``Mesh.data_context``).
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -28,12 +31,14 @@ import torch.distributed as dist
 @dataclass(frozen=True)
 class DistContext:
     """Where this process stands; ``grouped`` is true when a process group exists
-    (its collectives run even at world size 1)."""
+    (its collectives run even at world size 1); ``group`` is the group of
+    ``world_size`` ranks the collectives run over (None: the whole world)."""
 
     rank: int = 0
     world_size: int = 1
     local_rank: int = 0
     grouped: bool = False
+    group: Optional[object] = None
 
     def rows(self, n: int) -> slice:
         """This rank's rows of a global batch of ``n`` (a multiple of the world size)."""
@@ -50,9 +55,11 @@ def current() -> DistContext:
     return DistContext(dist.get_rank(), dist.get_world_size(), int(os.environ.get("LOCAL_RANK", 0)), True)
 
 
-def init_from_env(device: torch.device) -> DistContext:
-    """Join the process group that ``torchrun``'s environment describes (NCCL on
-    cuda, gloo on cpu); a world of one when ``WORLD_SIZE`` is not set."""
+def init_from_env(device: torch.device, backend: Optional[str] = None) -> DistContext:
+    """Join the process group that ``torchrun``'s environment describes
+    (``backend``, by default NCCL on cuda and gloo on cpu; gloo also takes
+    CUDA tensors for ``all_reduce``, so ranks may share a card over it); a
+    world of one when ``WORLD_SIZE`` is not set."""
     if dist.is_available() and dist.is_initialized():
         return current()
     if "WORLD_SIZE" not in os.environ:
@@ -60,7 +67,7 @@ def init_from_env(device: torch.device) -> DistContext:
     local_rank = int(os.environ.get("LOCAL_RANK", 0))
     if device.type == "cuda":
         torch.cuda.set_device(local_rank)
-    dist.init_process_group(backend="nccl" if device.type == "cuda" else "gloo", init_method="env://",
+    dist.init_process_group(backend=backend or ("nccl" if device.type == "cuda" else "gloo"), init_method="env://",
                             rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]))
     return current()
 
@@ -71,14 +78,14 @@ def local_device(ctx: DistContext, device: torch.device) -> torch.device:
 
 
 def average_grads(ctx: DistContext, params: Iterable[torch.Tensor]) -> None:
-    """Replace every gradient by its mean over the ranks (one flat all-reduce)."""
+    """Replace every gradient by its mean over the context's ranks (one flat all-reduce over its group)."""
     if not ctx.grouped:
         return
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=ctx.group)
     flat /= ctx.world_size
     offset = 0
     for g in grads:
@@ -87,11 +94,11 @@ def average_grads(ctx: DistContext, params: Iterable[torch.Tensor]) -> None:
 
 
 def average_metrics(ctx: DistContext, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """Scalar metrics averaged over the ranks, as Python floats (for logging)."""
+    """Scalar metrics averaged over the context's ranks, as Python floats (for logging)."""
     names = sorted(metrics)
     vals = torch.stack([metrics[k].detach().reshape(()).to(torch.float32) for k in names])
     if ctx.grouped:
-        dist.all_reduce(vals)
+        dist.all_reduce(vals, group=ctx.group)
         vals /= ctx.world_size
     return dict(zip(names, vals.tolist()))
 
@@ -102,5 +109,5 @@ def all_gather_rows(ctx: DistContext, t: torch.Tensor, dim: int = 0) -> torch.Te
         return t
     t = t.contiguous()
     parts: List[torch.Tensor] = [torch.empty_like(t) for _ in range(ctx.world_size)]
-    dist.all_gather(parts, t)
+    dist.all_gather(parts, t, group=ctx.group)
     return torch.cat(parts, dim=dim)

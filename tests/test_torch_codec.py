@@ -159,7 +159,7 @@ def test_mode_programs():
 
 
 @pytest.mark.parametrize("mode,kwargs", [
-    ("fast", {"attn_impl": "chunked"}),
+    ("fast", {"attn_impl": "chunked:bf16"}),  # bare "chunked" is a JAX spelling; its block_q must be a number
     ("fast", {"vocos_impl": "dw"}),
     ("fast", {"vocos_impl": "int8"}),
     ("parity", {"vocos_impl": "fused-dw"}),
