@@ -18,7 +18,13 @@ Phases, any failure exits non-zero:
      attention kernels (``attn_impl`` ``pflash`` and ``flash``), with launch
      counts read around each run, and those two kernels once more against
      their plain versions on the attention inputs of one 8 x 30 s batch of
-     their run; the fast modes once more at "highest"
+     their run (under ``utils.aot.eager()``); each run's tokenize and
+     detokenize are CUDA graphs captured at its warm-up call and replayed
+     after (``graph_check``: one program a direction, codes and waveforms
+     against ``eager()``, a held result unchanged by the next replay, the
+     hand kernels traced in a replay as ``expected_launches`` counts them,
+     graph and eager ms with the idle share, peak memory); the fast modes
+     once more at "highest"
      precision (TF32 off) for comparison; one fast-int8 encode + decode on
      the pcm16 wire; then streaming sessions in fast-int8 against the batch
      calls;
@@ -88,6 +94,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import argparse
+import contextlib
 import http.client
 import json
 import os
@@ -477,7 +484,7 @@ def check_convnext_dw(torch, randn, fc):
     t4, c, inter = 3000, 512, 4096
     x4 = randn(8, t4, c)
     block = random_block(torch, randn, c, inter)
-    fv = 2875
+    fv = torch.full((), 2875, dtype=torch.int32, device=dev)  # the edge as the codec hands it: on the device
     block_bf16 = copy.deepcopy(block).to(bf)
 
     def two_step():
@@ -502,12 +509,13 @@ def check_convnext_dw_shapes(torch, randn, fc):
     edges: ragged T = 203 (six 32-row tiles and 11) with the edge at 150
     inside a tile, no valid row (frame_valid = 0: xdw is the bias), batch
     seams at B = 3 (a halo must not read the neighbouring item), T shorter
-    than the 7-row window (1 and 5), and the widest C the wrapper takes."""
+    than the 7-row window (1 and 5), and the widest C the wrapper takes;
+    each edge as an int and as a device int32 (as the codec hands it)."""
     cases = ((2, 203, 64, 128, (None, 150)), (2, 203, 256, 192, (None, 150)), (3, 203, 256, 192, (None, 150, 0)),
              (3, 1, 256, 192, (None, 0)), (3, 5, 256, 192, (None, 3)), (2, 203, 768, 256, (None, 150)))
     for b, t, c, inter, fvs in cases:
         x, block = randn(b, t, c), random_block(torch, randn, c, inter)
-        for fv in fvs:
+        for fv in fvs + tuple(torch.tensor(v, dtype=torch.int32, device=x.device) for v in fvs if v is not None):
             compare(torch, f"convnext_dw:{c}x{inter} B={b} T={t} frame_valid={fv}",
                     fc.fused_convnext_block_dw(x, block, fv), fc.fused_convnext_block_dw_plain(x, block, fv), 1e-2)
 
@@ -573,6 +581,7 @@ def share_equal(a_list, b_list) -> float:
 def codec_phase(torch, cfg, model):
     from simwhisper_codec_tpu_torch.models.codec import AudioCodec
     from simwhisper_codec_tpu_torch.ops import _cuda
+    from simwhisper_codec_tpu_torch.utils import aot
 
     rng = np.random.default_rng(0)
     sr = cfg.input_sample_rate
@@ -585,8 +594,10 @@ def codec_phase(torch, cfg, model):
 
     results, codes_by_run, launches_by_run, codecs = {}, {}, {}, {}
     for label, kwargs in RUNS.items():
+        torch.cuda.reset_peak_memory_stats()
         codec = codecs[label] = AudioCodec(cfg, model, batch_size=8, device="cuda", **kwargs)
-        codec.decode(codec.encode([utts[0][:sr]])["codes_list"])  # warm-up, not counted
+        # warm-up, not counted: captures the tokenize and detokenize graphs
+        codec.decode(codec.encode([utts[0][:sr]])["codes_list"])
         stage = stage_times(torch, codec, batch)
         # the path under test: chunked encode + decode of the utterances
         _cuda.reset_launch_counts()
@@ -606,9 +617,12 @@ def codec_phase(torch, cfg, model):
         assert launches == want, f"{label}: launches {launches} != expected {want}"
         batch_rt = 8 * cfg.max_audio_seconds / ((stage["tokenize_ms"] + stage["detokenize_ms"]) / 1e3)
         results[label] = {"round_trip_x_real_time": sum(UTTERANCE_SECONDS) / wall, "wall_s": wall,
-                          "batch8_x_real_time": batch_rt, **stage, "launches": launches}
+                          "batch8_x_real_time": batch_rt, **stage, "launches": launches,
+                          "graphs": graph_check(torch, cfg, codec, label, batch, utts, enc, dec)}
         if label in F32_ATTENTION:
-            results[label]["attention_max_abs_err"] = codec_attention_check(torch, codec, F32_ATTENTION[label], batch)
+            with aot.eager():  # it records the wrapper's Python calls, which a replay never makes
+                results[label]["attention_max_abs_err"] = codec_attention_check(torch, codec, F32_ATTENTION[label],
+                                                                                batch)
         codes_by_run[label] = enc
         launches_by_run[label] = launches
         log(f"[codec] {label}: {json.dumps(results[label])}")
@@ -628,6 +642,110 @@ def codec_phase(torch, cfg, model):
 
 # parity runs with an f32 attention kernel -> the wrapper that launches it
 F32_ATTENTION = {"parity-pflash": "fused_qkv_attention", "parity-flash": "flash_attention"}
+# graph against eager waveforms where they are not bit for bit: max |d| <= RTOL * max |y|
+GRAPH_WAVE_RTOL = {"parity": 1e-5, "bf16": 1e-3}
+
+
+def profile_tool():
+    """``tools/profile_torch_port.py`` (its kernel groups and ``trace_call``)."""
+    tools = str(Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import profile_torch_port
+
+    return profile_torch_port
+
+
+def replay_kernel_counts(torch, cfg, codec, label, batch) -> dict:
+    """One replay of each program (tokenize + detokenize of the 8 x 30 s
+    batch) under ``utils/profiling.trace``: each pass of each hand kernel
+    appears in the trace as many times as ``expected_launches`` gives for one
+    chunk each way, no other hand kernel appears, and the launch counts the
+    replays add are the same.  Returns events by kernel group."""
+    from simwhisper_codec_tpu_torch.ops import _cuda
+    from simwhisper_codec_tpu_torch.utils import profiling
+
+    tool = profile_tool()
+    lens = np.full(len(batch), batch.shape[1])
+    tok = codec.inference_tokenize(batch, lens)
+    codes, clen = tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy()
+    assert codec._tokenize.source == "replayed", codec._tokenize.source
+    _cuda.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiling.trace(logdir):
+            codec.inference_tokenize(batch, lens)
+            codec.inference_detokenize(codes, clen)
+            torch.cuda.synchronize()
+        assert codec._tokenize.source == codec._detokenize.source == "replayed"
+        (trace_file,) = Path(logdir).glob("*.pt.trace.json")
+        events = json.loads(trace_file.read_text())["traceEvents"]
+    launches = dict(_cuda.launch_counts)
+    want = expected_launches(label, cfg, 1, 1)
+    assert launches == want, f"{label}: replayed launches {launches} != {want}"
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    want_events = {g: 0 for g, frags in tool.GROUPS.items() if g in tool.LAUNCH_GROUPS.values()}
+    for key, n in want.items():
+        want_events[tool.LAUNCH_GROUPS[key.split(":")[0]]] += n
+    found = {}
+    for group, n in want_events.items():
+        for frag in tool.GROUPS[group]:
+            found[frag.strip(":<")] = got = sum(frag in k for k in kernels)
+            assert got == n, f"{label}: {got} traced {frag} kernels in the replays, expected {n}"
+    return {"kernel_events": found, "kernels_traced": len(kernels)}
+
+
+def graph_check(torch, cfg, codec, label, batch, utts, enc, dec) -> dict:
+    """The captured programs of one phase-3 run, after its encode + decode of
+    the utterances (``enc``, ``dec``, from replays): one program per
+    direction; the same calls under ``aot.eager()`` give the same codes and
+    the same waveforms (bit for bit, else within ``GRAPH_WAVE_RTOL``); a
+    result the caller holds is unchanged by a second, different call; each
+    hand kernel traced in a replay as often as ``expected_launches`` says;
+    graph and eager ms per stage with the device's idle share (the profile
+    tool's ``trace_call``); peak memory with the graphs, and of an eager
+    round trip."""
+    from simwhisper_codec_tpu_torch.utils import aot
+
+    assert codec.trace_counts == {"tokenize": 1, "detokenize": 1}, (label, codec.trace_counts)
+    peak_graph = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with aot.eager():
+        enc_eager = codec.encode(utts)["codes_list"]
+        dec_eager = codec.decode(enc_eager)["syn_wav_list"]
+    peak_eager = torch.cuda.max_memory_allocated()
+    for a, b in zip(enc, enc_eager):
+        assert np.array_equal(a, b), f"{label}: graph codes differ from eager codes"
+    bits = all(np.array_equal(a, b) for a, b in zip(dec, dec_eager))
+    wave_err = max(float(np.abs(a.astype(np.float64) - b).max()) for a, b in zip(dec, dec_eager))
+    y_max = max(float(np.abs(b).max()) for b in dec_eager)
+    rtol = GRAPH_WAVE_RTOL["parity" if label.startswith("parity") else "bf16"]
+    assert bits or wave_err <= rtol * y_max, f"{label}: graph vs eager waveform {wave_err:.3g} > {rtol} x {y_max:.3g}"
+    # a held result survives a second, different call of each program
+    lens = np.full(len(batch), batch.shape[1])
+    tok = codec.inference_tokenize(batch, lens)
+    codes_np, clen_np = tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy()
+    held = dict(tok, **codec.inference_detokenize(codes_np, clen_np))
+    held_host = {k: v.cpu() for k, v in held.items()}
+    other = codec.inference_tokenize(batch[::-1] * 0.5, lens[::-1] // 2)
+    other.update(codec.inference_detokenize(other["codes"].cpu().numpy(), other["codes_lengths"].cpu().numpy()))
+    assert not torch.equal(other["y"].cpu(), held_host["y"]), f"{label}: the second call is not a different one"
+    changed = [k for k, v in held.items() if not torch.equal(v.cpu(), held_host[k])]
+    assert not changed, f"{label}: held results {changed} changed under the next replay"
+    assert codec.trace_counts == {"tokenize": 1, "detokenize": 1}, (label, codec.trace_counts)
+    tool = profile_tool()
+    stages = {"tokenize": lambda: codec.inference_tokenize(batch, lens),
+              "detokenize": lambda: codec.inference_detokenize(codes_np, clen_np)}
+    timing = {}
+    for program in ("graph", "eager", "eager", "graph"):  # in turns; each stage's second reading is kept
+        with aot.eager() if program == "eager" else contextlib.nullcontext():
+            timing[program] = {stage: {k: r[k] for k in ("wall_ms", "traced_wall_ms", "device_ms", "idle_share")}
+                               for stage, fn in stages.items() for r in [tool.trace_call(torch, fn)]}
+    out = {"trace_counts": codec.trace_counts, "codes_equal_eager": True, "waveform_bit_for_bit": bits,
+           "waveform_max_abs_diff": wave_err, "held_result_unchanged": True, **timing,
+           "peak_allocated_bytes": {"graph_run": peak_graph, "eager_round_trip": peak_eager},
+           **replay_kernel_counts(torch, cfg, codec, label, batch)}
+    log(f"[graph] {label}: {json.dumps(out)}")
+    return out
 
 
 def codec_attention_check(torch, codec, fn_name: str, batch) -> float:
@@ -2536,7 +2654,7 @@ def main() -> int:
 
     log(f"[gpu] {gpu_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"[build] {len(_cuda.SOURCES)} kernels built in {_cuda.build_kernels():.1f} s")
-    log_build_reports(_cuda.BUILD_DIR, _cuda.SOURCES)
+    log_build_reports(_cuda.build_dir(), _cuda.SOURCES)
     with torch.no_grad():
         rows = kernel_phase(torch)
     cfg = load_config("config/SimWhisperCodec.yaml")

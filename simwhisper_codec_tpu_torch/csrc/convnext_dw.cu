@@ -11,7 +11,9 @@
 // zeroed (the virtual right edge of the Vocos convs) and the residual is
 // the unmasked x.  xdw enters the LayerNorm in f32, without a bf16
 // rounding; each tap is a separate f32 multiply and add (no FMA), as the
-// JAX kernel writes them.
+// JAX kernel writes them.  frame_valid is an int32 in device memory that the
+// row kernel loads, so one captured CUDA graph serves every chunk width
+// (the JAX package traces the width as a scalar for the same reason).
 //
 // Bound on the H100: the two products, 4 B T C I operations against the
 // bf16 tensor-core rate (the depthwise sum adds 14 B T C).  The TPU kernel
@@ -59,7 +61,7 @@ template <int NT>  // C = 64 * NT
 __global__ void __launch_bounds__(ROWS_THREADS, 2) convnext_dw_rows_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ dw_w, const bf16* __restrict__ dw_b,
     const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b, bf16* __restrict__ xn, int T, int tiles,
-    int frame_valid, float eps) {
+    const int* __restrict__ frame_valid, float eps) {
   constexpr int C = 64 * NT;
   constexpr int VPL = C / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -69,7 +71,7 @@ __global__ void __launch_bounds__(ROWS_THREADS, 2) convnext_dw_rows_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x / tiles, t0 = (blockIdx.x % tiles) * ROWS;
   const bf16* xb = x + (size_t)b * T * C;
-  const int t_end = min(frame_valid, T);
+  const int t_end = min(*frame_valid, T);
 
   for (int i = tid; i < TAPS * C; i += ROWS_THREADS) taps[i] = bf(dw_w[i]);
   for (int i = tid; i < C; i += ROWS_THREADS) taps[TAPS * C + i] = bf(dw_b[i]);
@@ -122,7 +124,7 @@ FFN_PASS_KERNEL(convnext_dw_down_partial_kernel, Bf16, PartialDownEpilogue)
 
 template <int NT>
 int rows_pass(const void* x, const void* dw_w, const void* dw_b, const void* ln_w, const void* ln_b, void* xn,
-              int B, int T, int frame_valid, float eps, cudaStream_t s) {
+              int B, int T, const int* frame_valid, float eps, cudaStream_t s) {
   constexpr int bytes = rows_smem_bytes(64 * NT);
   const cudaError_t e = sm90::allow_smem(convnext_dw_rows_kernel<NT>, bytes);
   if (e != cudaSuccess) return (int)e;
@@ -134,7 +136,7 @@ int rows_pass(const void* x, const void* dw_w, const void* dw_b, const void* ln_
 }
 
 int rows_pass_any(int C, const void* x, const void* dw_w, const void* dw_b, const void* ln_w, const void* ln_b,
-                  void* xn, int B, int T, int frame_valid, float eps, cudaStream_t s) {
+                  void* xn, int B, int T, const int* frame_valid, float eps, cudaStream_t s) {
   switch (C / 64) {
 #define CASE(NT) \
   case NT:       \
@@ -153,18 +155,19 @@ int rows_pass_any(int C, const void* x, const void* dw_w, const void* dw_b, cons
 // may be null; the wrapper runs rows, up and one of the downs, a timer one
 // at a time).  x and out (B, T, C), dw_w (7, C), W1 (I, C), W2
 // (C, I) and the bf16 vectors contiguous; C a multiple of 64 up to 768, I a
-// multiple of 32, 0 <= frame_valid <= T; xn (B T, C) and h (B T, I) bf16
+// multiple of 32, frame_valid a device int32 (rows [0, min(*frame_valid, T))
+// are read); xn (B T, C) and h (B T, I) bf16
 // workspaces; g_* the tensor-map geometries of xn, W1, h and W2
 // (ops/fused_convnext.py::ffn_tile_maps).  Returns 0, or the first error of
 // the passes: a CUDA error or sm90::TENSOR_MAP_ERROR + cuTensorMapEncodeTiled's CUresult.
 extern "C" int convnext_dw_bf16(const void* x, const void* dw_w, const void* dw_b, const void* ln_w,
                                 const void* ln_b, const void* w1, const void* b1, const void* w2, const void* b2,
                                 const void* gamma, void* out, void* xn, void* h, int B, int T, int C, int I,
-                                int frame_valid, float eps, const long long* g_xn, const long long* g_w1,
+                                const void* frame_valid, float eps, const long long* g_xn, const long long* g_w1,
                                 const long long* g_h, const long long* g_w2, int passes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int err = 0;
-  if (passes & 1) err = rows_pass_any(C, x, dw_w, dw_b, ln_w, ln_b, xn, B, T, frame_valid, eps, s);
+  if (passes & 1) err = rows_pass_any(C, x, dw_w, dw_b, ln_w, ln_b, xn, B, T, (const int*)frame_valid, eps, s);
   if (err == 0)
     err = ffn_bf16::up_down_passes(
         convnext_dw_up_kernel<ffn_sm90::UP_BN>, [](auto bn) { return convnext_dw_down_kernel<decltype(bn)::value>; },

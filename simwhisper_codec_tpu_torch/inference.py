@@ -44,6 +44,9 @@ def main(argv=None) -> None:
                              "(TF32); the fast modes always run default")
     parser.add_argument("--mode", type=str, default="parity", choices=MODES,
                         help="parity: f32 bit-exact codes; fast: bf16 serving path")
+    parser.add_argument("--aot_dir", type=str, default=None,
+                        help="directory of the compiled kernel libraries, reused by later runs (also via "
+                             "SIMWHISPER_AOT_DIR)")
     parser.add_argument("--data_parallel", action="store_true",
                         help="split each batch over the ranks of torchrun's process group (one GPU each)")
     args = parser.parse_args(argv)
@@ -53,7 +56,7 @@ def main(argv=None) -> None:
     generator = AudioCodec.load_from_checkpoint(
         config_path=args.config_path, ckpt_path=args.checkpoint_path, batch_size=args.batch_size,
         precision=args.precision, mode=args.mode, device=dist.local_device(ctx, device),
-        data_parallel=args.data_parallel,
+        data_parallel=args.data_parallel, aot_dir=args.aot_dir,
     )
     audio_paths = find_audio_files(input_dir=args.input_dir)
     os.makedirs(args.output_dir, exist_ok=True)

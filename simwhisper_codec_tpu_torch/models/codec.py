@@ -12,7 +12,13 @@ Counterpart of ``simwhisper_codec_tpu/models/codec.py`` (reference
 the reference's chunk arithmetic (stride = 30 s - overlap, valid-region
 extraction, final ``length // 1280`` trim), pads every batch to
 ``batch_size`` and passes the chunk width as a virtual right edge, exactly
-as the JAX package does.
+as the JAX package does.  As the JAX package runs each direction as one
+``jax.jit`` program per padded shape, ``AudioCodec`` runs ``tokenize`` and
+``detokenize`` as ``utils/aot.py`` programs: on the card each signature is
+captured once as a CUDA graph of the hand kernels and replayed after;
+``trace_counts`` counts the signatures.  The chunk width reaches
+``detokenize`` as a device scalar, so one detokenize graph serves every
+last-chunk width.
 
 Modes: ``parity`` (f32, dense attention, exact GELU), ``fast`` (bf16, the
 pflash attention kernel and the fused LN-FFN kernel in every transformer FFN
@@ -45,6 +51,7 @@ axis (``parallel.mesh.batch_rows`` / ``gather_rows``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import os
 from typing import Dict, List, Optional
@@ -56,10 +63,11 @@ from torch.nn import functional as F
 
 from simwhisper_codec_tpu_torch.config import CodecConfig, load_config
 from simwhisper_codec_tpu_torch.models import sampling, transformer, vocos
-from simwhisper_codec_tpu_torch.ops import fsq, mel
+from simwhisper_codec_tpu_torch.ops import _cuda, fsq, mel
 from simwhisper_codec_tpu_torch.ops.quant import quantize_stacked_convnext, quantize_stacked_ffn
 from simwhisper_codec_tpu_torch.ops.snake import AliasFreeConstants
 from simwhisper_codec_tpu_torch.parallel import dist as dist_ctx
+from simwhisper_codec_tpu_torch.utils import aot
 from simwhisper_codec_tpu_torch.utils.audio_io import to_pcm16
 
 logger = logging.getLogger(__name__)
@@ -120,13 +128,15 @@ def tokenize(model: SimWhisperCodec, wav: torch.Tensor, sample_lengths: torch.Te
 
 
 def detokenize(model: SimWhisperCodec, codes: torch.Tensor, code_lengths: torch.Tensor,
-               code_frame_valid: Optional[int] = None, compute_dtype: str = "float32",
+               code_frame_valid=None, compute_dtype: str = "float32",
                attn_impl: str = "dense", ffn_impl: str = "dense", vocos_impl=None
                ) -> Dict[str, torch.Tensor]:
     """codes (G, B, Tc) -> {"y": (B, Tc * 1280), "output_length": (B,)}.
 
     ``code_frame_valid``: the chunk width the reference would have processed
-    (<= Tc); drives the virtual right edge of the Vocos convs and the ISTFT.
+    (<= Tc), an int or a 0-d integer tensor on the codes' device (read there,
+    as the JAX package traces it); drives the virtual right edge of the
+    Vocos convs and the ISTFT.
     """
     cfg, c = model.cfg, model.consts
     zq = fsq.group_fsq_decode(c.fsq, codes, code_lengths).to(_DTYPES[compute_dtype])
@@ -134,7 +144,7 @@ def detokenize(model: SimWhisperCodec, codes: torch.Tensor, code_lengths: torch.
     dec, dec_len = model.acoustic_decoder(up, up_len, attn_impl, ffn_impl)
     frame_valid = None
     if code_frame_valid is not None:
-        frame_valid = int(code_frame_valid) * cfg.upsample.stack_factor * cfg.acoustic_decoder.stride_size
+        frame_valid = code_frame_valid * cfg.upsample.stack_factor * cfg.acoustic_decoder.stride_size
     audio, out_len = model.vocos(dec, dec_len, frame_valid, vocos_impl)
     return {"y": audio, "output_length": out_len}
 
@@ -238,7 +248,7 @@ class AudioCodec:
     def __init__(self, cfg: CodecConfig, model: SimWhisperCodec, batch_size: int = 8,
                  mode: str = "parity", device=None, attn_impl: Optional[str] = None,
                  vocos_impl: Optional[str] = None, wire: str = "float32", precision: str = "highest",
-                 data_parallel: bool = False):
+                 data_parallel: bool = False, aot_dir: Optional[str] = None):
         """``model`` is moved to ``device`` (default ``cuda``); int8 modes add
         the quantised weights to it as non-persistent buffers.
 
@@ -251,7 +261,14 @@ class AudioCodec:
         ``data_parallel``: in an initialised ``torch.distributed`` group, each
         call pads its batch to a multiple of the world size, runs this rank's
         rows and all-gathers the result, so every rank returns the whole
-        batch, as one process would (the JAX package's ``data`` mesh axis)."""
+        batch, as one process would (the JAX package's ``data`` mesh axis).
+        ``aot_dir`` (or ``$SIMWHISPER_AOT_DIR``): where the kernel libraries
+        are built and loaded on the card (``ops._cuda.use_aot_dir``).
+
+        ``tokenize`` and ``detokenize`` run as ``utils.aot.CapturedProgram``s
+        sharing one graph memory pool; a model sharded by
+        ``parallel.mesh.shard_model`` (layers holding a ``model_group``)
+        runs them eagerly, since its collectives cannot be captured."""
         if wire not in WIRES:
             raise ValueError(f"wire must be one of {WIRES}, got {wire!r}")
         if precision not in PRECISIONS:
@@ -279,6 +296,23 @@ class AudioCodec:
         self.encoder_downsample_rate = cfg.encoder_downsample_rate
         self.decoder_upsample_rate = cfg.decoder_upsample_rate
         self.num_groups = cfg.quantizer.num_groups
+        self.aot_dir = aot_dir
+        if aot_dir is not None and self.device.type == "cuda":
+            _cuda.use_aot_dir(aot_dir)
+        sharded = any(getattr(m, "model_group", None) is not None for m in self.model.modules())
+        if sharded:
+            logger.info("the model is sharded over a model group: tokenize and detokenize run eagerly")
+        pool = aot.GraphPool()
+        self._tokenize = aot.CapturedProgram(functools.partial(tokenize, self.model, **self._tok_kw), "tokenize",
+                                             pool, capture=not sharded)
+        self._detokenize = aot.CapturedProgram(functools.partial(detokenize, self.model, **self._detok_kw),
+                                               "detokenize", pool, capture=not sharded)
+
+    @property
+    def trace_counts(self) -> Dict[str, int]:
+        """Programs per direction: input signatures seen, each captured once
+        on the card (the JAX ``AudioCodec.trace_counts``)."""
+        return {"tokenize": self._tokenize.count, "detokenize": self._detokenize.count}
 
     @property
     def dist_context(self) -> dist_ctx.DistContext:
@@ -322,7 +356,7 @@ class AudioCodec:
             wav_t = F.pad(wav_t.to(torch.float32) * (1.0 / 32768.0), (0, n - target))
         len_t = torch.from_numpy(input_lengths[rows].astype(np.int64)).to(self.device)
         with f32_precision(self.precision):
-            out = tokenize(self.model, wav_t, len_t, **self._tok_kw)
+            out = self._tokenize(wav_t, len_t)
         out = {k: dist_ctx.all_gather_rows(self._dist, v, 1 if k == "codes" else 0) for k, v in out.items()}
         if bp != b:  # drop batch-padding rows
             out = {"zq": out["zq"][:b], "codes": out["codes"][:, :b], "codes_lengths": out["codes_lengths"][:b]}
@@ -348,8 +382,9 @@ class AudioCodec:
         rows = self._dist.rows(bp)
         codes_t = torch.from_numpy(np.ascontiguousarray(codes[:, rows], np.int32)).to(self.device)
         len_t = torch.from_numpy(codes_lengths[rows].astype(np.int64)).to(self.device)
+        width_t = torch.full((), width, dtype=torch.int32, device=self.device)  # a fill, not a host copy
         with f32_precision(self.precision):
-            out = detokenize(self.model, codes_t, len_t, width, **self._detok_kw)
+            out = self._detokenize(codes_t, len_t, width_t)
         out = {k: dist_ctx.all_gather_rows(self._dist, v) for k, v in out.items()}
         if self.wire == "pcm16":
             y = torch.clamp(out["y"].to(torch.float32) * 32768.0, -32768.0, 32767.0).to(torch.int16)

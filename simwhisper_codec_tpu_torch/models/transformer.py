@@ -95,8 +95,9 @@ def attention_bias(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """(B, 1, T, T) f32 bias: +1.0 on valid query/key pairs, f32 min elsewhere."""
     valid = torch.arange(max_len, device=lengths.device)[None, :] < lengths[:, None]
     pair = valid[:, None, :, None] & valid[:, None, None, :]
-    neg = torch.finfo(torch.float32).min
-    return torch.where(pair, torch.tensor(1.0, device=lengths.device), torch.tensor(neg, device=lengths.device))
+    # Python scalars, not tensors made from host values: those are H->D
+    # copies, which a CUDA graph capture (utils/aot.py) refuses
+    return torch.where(pair, 1.0, torch.finfo(torch.float32).min)
 
 
 def seq_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -165,8 +166,7 @@ class SelfAttention(nn.Module):
 def _key_bias(lengths: torch.Tensor, t: int, dtype) -> torch.Tensor:
     """(B, T) key-side bias in ``dtype``: +1.0 on keys < length, the dtype's minimum elsewhere."""
     valid = torch.arange(t, device=lengths.device)[None, :] < lengths[:, None]
-    return torch.where(valid, torch.tensor(1.0, dtype=dtype, device=lengths.device),
-                       torch.tensor(torch.finfo(dtype).min, dtype=dtype, device=lengths.device))
+    return torch.where(valid, 1.0, torch.finfo(dtype).min).to(dtype)  # f32 holds the dtype's min exactly
 
 
 def _scores_softmax(q, k, kbias, score_dtype) -> torch.Tensor:

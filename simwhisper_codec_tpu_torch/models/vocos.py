@@ -4,9 +4,11 @@ Counterpart of ``simwhisper_codec_tpu/models/vocos.py`` (reference
 ``audiocodec/nn/modules.py:1033-1574``).  Submodules follow the reference
 keys (``backbone.embed``, ``backbone.convnext.{i}.pwconv1``, ``head.out``).
 
-``frame_valid`` (an int or None) is a virtual right edge: inputs are
-re-zeroed beyond it before every conv, and the ISTFT envelope ends there,
-so a fixed T-frame run reproduces the reference's shorter-array output.
+``frame_valid`` (None, an int, or a 0-d integer tensor on the device, as
+the JAX package traces it) is a virtual right edge: inputs are re-zeroed
+beyond it before every conv, and the ISTFT envelope ends there, so a fixed
+T-frame run reproduces the reference's shorter-array output.  Nothing
+reads the tensor on the host, so one captured graph serves every width.
 
 Block impls: ``None`` (exact GELU, parity mode), ``"fused"`` (plain
 depthwise conv, then ``csrc/ln_ffn.cu``), ``"fused-dw"`` (the whole block,
@@ -38,7 +40,7 @@ from simwhisper_codec_tpu_torch.parallel.mesh import copy_to_model, row_parallel
 VOCOS_IMPLS = (None, "fused", "fused-dw", "int8")
 
 
-def edge_mask(t: int, frame_valid: Optional[int], dtype, device) -> Optional[torch.Tensor]:
+def edge_mask(t: int, frame_valid, dtype, device) -> Optional[torch.Tensor]:
     if frame_valid is None:
         return None
     return (torch.arange(t, device=device) < frame_valid).to(dtype)[None, :, None]
@@ -55,7 +57,7 @@ class ConvNeXtBlock(nn.Module):
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], impl=None,
-                frame_valid: Optional[int] = None) -> torch.Tensor:
+                frame_valid=None) -> torch.Tensor:
         """``mask`` is ``edge_mask`` of ``frame_valid``; ``fused-dw`` reads the bound itself."""
         group = self.model_group
         if impl == "fused-dw":
@@ -110,7 +112,7 @@ class Vocos(nn.Module):
         self.head = Head(cfg)
         self.istft = ISTFTConstants(cfg.n_fft, cfg.hop_size)
 
-    def forward(self, mel: torch.Tensor, lengths: torch.Tensor, frame_valid: Optional[int] = None,
+    def forward(self, mel: torch.Tensor, lengths: torch.Tensor, frame_valid=None,
                 impl=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, T, input_channels) -> waveform (B, T * hop), lengths * hop."""
         bb = self.backbone

@@ -174,7 +174,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, len
     t = q.shape[2]
     scores = q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)  # (B, H, T, T)
     valid = torch.arange(t, device=q.device)[None, :] < lengths.to(q.device)[:, None]
-    bias = torch.where(valid, torch.tensor(1.0, device=q.device), torch.tensor(NEG_BIG, device=q.device))
+    bias = torch.where(valid, 1.0, NEG_BIG)
     scores = scores + bias[:, None, None, :]
     e = torch.exp(scores - scores.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(q.dtype).to(torch.float32)

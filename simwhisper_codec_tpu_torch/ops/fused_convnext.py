@@ -293,12 +293,27 @@ def _dw_taps(block, dt):
     return block.dwconv.weight[:, 0, :].t().to(dt), block.dwconv.bias.to(dt)
 
 
+def frame_bound(frame_valid, t: int, device) -> torch.Tensor:
+    """B4's edge as the int32 (1,) tensor its row kernel reads on the device:
+    ``frame_valid`` clipped to [0, T].  ``frame_valid`` is None (T), an int
+    (>= 0), or a tensor on ``device`` (a chunk width that a CUDA graph takes
+    as an input: clipped there, with no host read)."""
+    if isinstance(frame_valid, torch.Tensor):
+        _cuda.require(frame_valid.numel() == 1 and frame_valid.device == device,
+                      f"a frame_valid tensor must hold one value on {device}")
+        return frame_valid.reshape(1).clamp(0, t).to(torch.int32)
+    fv = t if frame_valid is None else int(frame_valid)
+    _cuda.require(fv >= 0, f"frame_valid must be >= 0, got {fv}")
+    return torch.full((1,), min(fv, t), dtype=torch.int32, device=device)
+
+
 def _convnext_dw_args(x, block, frame_valid=None, eps=1e-6, b2=None, block_ns=None, partial=False):
     """Check the operands and build the argument list of ``convnext_dw_bf16``
     (all but ``passes``) for x (B, T, C) on any device (``meta`` plans it
     with no storage): the rows pass writes xn over B*T rows, then B2's up
     and down passes run on the workspaces.  The down pass adds pwconv2's
-    bias, or in the partial mode ``b2`` (None: no bias)."""
+    bias, or in the partial mode ``b2`` (None: no bias).  The edge goes to
+    the kernel as a device int32 (``frame_bound``), the last of the tensors."""
     _cuda.require(x.dtype == torch.bfloat16, f"ConvNeXt kernel takes bfloat16, got {x.dtype}")
     _cuda.require(x.dim() == 3, "x must be a (B, T, C) tensor")
     x = x.contiguous()  # the first block's input is a transposed view of the embedding conv's output
@@ -307,9 +322,8 @@ def _convnext_dw_args(x, block, frame_valid=None, eps=1e-6, b2=None, block_ns=No
     inter = block.pwconv1.weight.shape[0]
     _cuda.require(inter % 32 == 0, f"I={inter} must be a multiple of 32")
     _cuda.require(1 <= b * t <= MAX_ROWS, f"B*T={b * t} rows must be 1..{MAX_ROWS}")
-    fv = t if frame_valid is None else int(frame_valid)
-    _cuda.require(fv >= 0, f"frame_valid must be >= 0, got {fv}")
     dev, dt = x.device, x.dtype
+    bound = frame_bound(frame_valid, t, dev)
     dw_w, dw_b = _dw_taps(block, dt)
     w1, w2 = block.pwconv1.weight.to(dt).contiguous(), block.pwconv2.weight.to(dt).contiguous()
     ws = ffn_workspaces(b * t, c, inter, False, dev)
@@ -317,8 +331,8 @@ def _convnext_dw_args(x, block, frame_valid=None, eps=1e-6, b2=None, block_ns=No
     tensors = [x, dw_w.contiguous(), _vec(dw_b, c, dt, dev), _vec(block.norm.weight, c, dt, dev),
                _vec(block.norm.bias, c, dt, dev), w1, _vec(block.pwconv1.bias, inter, dt, dev), w2,
                _bias(b2 if partial else block.pwconv2.bias, c, dt, dev, partial),
-               _vec(block.gamma, c, dt, dev), _out(x, partial), ws["xn"], ws["h"]]
-    args = [*map(_cuda.ptr, tensors), *map(_cuda.c_int, (b, t, c, inter, min(fv, t))), _cuda.c_float(eps),
+               _vec(block.gamma, c, dt, dev), _out(x, partial), ws["xn"], ws["h"], bound]
+    args = [*map(_cuda.ptr, tensors[:-1]), *map(_cuda.c_int, (b, t, c, inter)), _cuda.ptr(bound), _cuda.c_float(eps),
             *(g.as_c() for g in maps)]
     return args, tensors, f"{c}x{inter}"
 
@@ -456,9 +470,10 @@ def fused_ln_ffn_int8(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma=N
 
 def _dw_sum_plain(x: torch.Tensor, block, frame_valid) -> torch.Tensor:
     """B4's depthwise sum on x (B, T, C) as (B T, C) f32: rows outside
-    [0, frame_valid) zeroed, summed from the bias with taps 0..6 in order."""
+    [0, frame_valid) zeroed, summed from the bias with taps 0..6 in order.
+    ``frame_valid`` is None (T), an int or a one-value tensor, as the kernel's."""
     b, t, c = x.shape
-    fv = t if frame_valid is None else int(frame_valid)
+    fv = t if frame_valid is None else frame_valid
     valid = (torch.arange(t, device=x.device) < fv)[None, :, None]
     xp = F.pad(torch.where(valid, x.to(torch.float32), 0.0), (0, 0, 3, 3))
     w, bias = (z.to(torch.float32) for z in _dw_taps(block, x.dtype))
@@ -505,7 +520,8 @@ def fused_convnext_block_dw(x: torch.Tensor, block, frame_valid=None, eps: float
                             group=None) -> torch.Tensor:
     """Whole ConvNeXt block of one Vocos layer (depthwise k7 conv with the
     ``frame_valid`` edge mask, LN, pwconv1, GELU, pwconv2, gamma, residual)
-    on x (B, T, C).  Any T; ``frame_valid=None`` means T.  A CUDA tensor
+    on x (B, T, C).  Any T; ``frame_valid`` is None (T), an int or a
+    one-value tensor on x's device (read by the kernel there).  A CUDA tensor
     runs ``csrc/convnext_dw.cu``'s three passes (one launch count).  With a
     model ``group``: the partial mode (the depthwise + LN rows pass runs
     whole on every rank), reduced over the group, the block input added

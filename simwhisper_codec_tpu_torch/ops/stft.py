@@ -11,7 +11,7 @@ or beyond ``frame_valid`` behave as if the array ended there.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -62,12 +62,13 @@ def istft_same(
     consts: ISTFTConstants,
     spec_re: torch.Tensor,
     spec_im: torch.Tensor,
-    frame_valid: Optional[int] = None,
+    frame_valid=None,
 ) -> torch.Tensor:
     """spec (B, T, n_freq) f32 -> waveform (B, T * hop).
 
-    With ``frame_valid`` only the first ``frame_valid * hop`` samples are
-    meaningful; beyond it the envelope is 0 and the NOLA guard divides by 1.
+    With ``frame_valid`` (an int or a 0-d tensor on the device) only the
+    first ``frame_valid * hop`` samples are meaningful; beyond it the
+    envelope is 0 and the NOLA guard divides by 1.
     """
     t = spec_re.shape[1]
     frames = spec_re @ consts.basis_re + spec_im @ consts.basis_im  # (B, T, n_fft)

@@ -210,17 +210,16 @@ def build_codec(args):
     from simwhisper_codec_tpu_torch.config import load_config
     from simwhisper_codec_tpu_torch.models.codec import AudioCodec, init_params
 
+    kwargs = dict(mode=args.mode, batch_size=args.max_batch, device=args.device, wire=args.wire,
+                  aot_dir=args.aot_dir)
     if args.checkpoint:
-        return AudioCodec.load_from_checkpoint(args.config, args.checkpoint, mode=args.mode,
-                                               batch_size=args.max_batch, device=args.device, wire=args.wire)
+        return AudioCodec.load_from_checkpoint(args.config, args.checkpoint, **kwargs)
     cfg = load_config(args.config)
     logger.info("no --checkpoint: random weights from seed %d", args.seed)
-    model = init_params(cfg, torch.Generator().manual_seed(args.seed))
-    return AudioCodec(cfg, model, mode=args.mode, batch_size=args.max_batch, device=args.device, wire=args.wire)
+    return AudioCodec(cfg, init_params(cfg, torch.Generator().manual_seed(args.seed)), **kwargs)
 
 
-def main(argv=None):
-    set_logging()
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config", default="config/SimWhisperCodec.yaml")
     p.add_argument("--checkpoint", default=None, help="reference SimWhisperCodec.pt (default: random weights)")
@@ -237,10 +236,20 @@ def main(argv=None):
                    help="reject request bodies above this size with 413 before reading them")
     p.add_argument("--wire", default="float32", choices=["float32", "pcm16"],
                    help="host<->device waveform format; pcm16 halves the bytes and quantises to 16 bits")
-    args = p.parse_args(argv)
+    p.add_argument("--aot_dir", default=None,
+                   help="directory of the compiled kernel libraries, reused by later starts (also via "
+                        "SIMWHISPER_AOT_DIR); the CUDA graphs are captured anew each start")
+    return p
+
+
+def main(argv=None):
+    set_logging()
+    args = build_parser().parse_args(argv)
 
     codec = build_codec(args)
-    warm = [np.zeros(16000, np.float32)]  # first requests should not pay for start-up
+    # first requests should not pay for start-up: builds the kernels and
+    # captures both CUDA graphs before the server takes a request
+    warm = [np.zeros(16000, np.float32)]
     codec.decode(codec.encode(warm)["codes_list"])
     logger.info("codec warm; serving on %s:%d (mode=%s, device=%s, wire=%s)", args.host, args.port, args.mode,
                 codec.device, args.wire)

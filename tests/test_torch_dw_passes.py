@@ -9,6 +9,8 @@ checked here on the ``meta`` device, where no tensor has storage and no
 CUDA pointer is needed (the down width is balanced over the H100's SMs).
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -18,9 +20,9 @@ from simwhisper_codec_tpu_torch.ops import fused_convnext as fc
 SHAPES = [(8, 3000, 512, 4096), (3, 203, 256, 192)]  # the Vocos shape; ragged T at B = 3
 
 
-def _args(b, t, c, inter, frame_valid=None):
-    block = ConvNeXtBlock(c, inter, 0.1).to("meta")
-    x = torch.empty(b, t, c, dtype=torch.bfloat16, device="meta")
+def _args(b, t, c, inter, frame_valid=None, device="meta"):
+    block = ConvNeXtBlock(c, inter, 0.1).to(device)
+    x = torch.empty(b, t, c, dtype=torch.bfloat16, device=device)
     return fc._convnext_dw_args(x, block, frame_valid, 1e-6)
 
 
@@ -28,15 +30,17 @@ def _args(b, t, c, inter, frame_valid=None):
 def test_dw_workspaces_and_operands(b, t, c, inter):
     """The operands in the C entry point's order (x, dw_w (7, C), five C-vectors
     and b1, W1 (I, C), W2 (C, I), out (B, T, C)) and the bf16 workspaces
-    xn (B T, C) and h (B T, I); the scalars B, T, C, I, frame_valid, eps."""
+    xn (B T, C) and h (B T, I); the scalars B, T, C, I, then frame_valid as
+    a pointer to a device int32 (the last tensor), then eps."""
     args, tensors, shape = _args(b, t, c, inter, frame_valid=t - 7)
     assert shape == f"{c}x{inter}"
     want = [(b, t, c), (7, c), (c,), (c,), (c,), (inter, c), (inter,), (c, inter), (c,), (c,), (b, t, c),
-            (b * t, c), (b * t, inter)]
+            (b * t, c), (b * t, inter), (1,)]
     assert [tuple(v.shape) for v in tensors] == want
-    assert all(v.dtype == torch.bfloat16 and v.is_contiguous() for v in tensors)
+    assert all(v.dtype == torch.bfloat16 and v.is_contiguous() for v in tensors[:-1])
+    assert tensors[-1].dtype == torch.int32
     assert len(args) == 13 + 6 + 4
-    assert [a.value for a in args[13:18]] == [b, t, c, inter, t - 7]
+    assert [a.value for a in args[13:17]] == [b, t, c, inter] and isinstance(args[17], ctypes.c_void_p)
 
 
 @pytest.mark.parametrize("b,t,c,inter", SHAPES)
@@ -68,9 +72,14 @@ def test_dw_down_width_and_passes():
 @pytest.mark.parametrize("b,t,frame_valid,want", [(2, 5, 0, 0), (2, 5, 9, 5), (1, 1, None, 1), (3, 203, 150, 150)])
 def test_dw_frame_valid_is_clipped_to_t(b, t, frame_valid, want):
     """frame_valid = None means T, and a bound past T is T: the row kernel
-    reads rows [0, min(frame_valid, T)) of each item."""
-    args, _, _ = _args(b, t, 64, 128, frame_valid=frame_valid)
-    assert args[17].value == want
+    reads rows [0, min(frame_valid, T)) of each item, from the device int32
+    it is handed (planned on the CPU here, where the bound has a value); a
+    width given as a tensor is clipped the same way, on its device."""
+    _, tensors, _ = _args(b, t, 64, 128, frame_valid=frame_valid, device="cpu")
+    assert int(tensors[-1]) == want
+    if frame_valid is not None:
+        _, tensors, _ = _args(b, t, 64, 128, frame_valid=torch.tensor(frame_valid), device="cpu")
+        assert tensors[-1].dtype == torch.int32 and int(tensors[-1]) == want
 
 
 @pytest.mark.parametrize("c,inter,frame_valid", [(832, 128, None), (512, 48, None), (512, 128, -1), (96, 128, None)])

@@ -2,8 +2,10 @@
 """Device-time breakdown of the PyTorch port's codec stages on one GPU.
 
 Builds the full-width codec (config/SimWhisperCodec.yaml, random weights
-from a fixed seed), warms it, then traces one tokenize and one detokenize of
-a batch of 8 x 30 s with ``torch.profiler`` for each requested configuration
+from a fixed seed), warms it (which captures its two CUDA graphs,
+``utils/aot.py``), then traces one tokenize and one detokenize of a batch
+of 8 x 30 s with ``torch.profiler``, as graph replays and once more under
+``utils.aot.eager()`` (op by op), for each requested configuration
 (the serving modes; ``flash-dw``: fast mode with the B5 attention core and
 the B4 whole-block Vocos kernel; ``fast-dw``: fast mode with B4, attention
 as in ``fast``, so that its detokenize differs from fast's in the Vocos
@@ -23,6 +25,7 @@ Run from the repository root on the machine with the GPU:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -156,6 +159,7 @@ def main() -> int:
     from simwhisper_codec_tpu_torch.config import load_config
     from simwhisper_codec_tpu_torch.models.codec import AudioCodec, init_params
     from simwhisper_codec_tpu_torch.ops import _cuda
+    from simwhisper_codec_tpu_torch.utils import aot
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -172,13 +176,16 @@ def main() -> int:
         tok = codec.inference_tokenize(wav, lens)  # warm-up of both stages
         codes, clen = tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy()
         codec.inference_detokenize(codes, clen)
-        result = {"gpu": gpu, "config": name, **CONFIGS[name], "batch": 8, "seconds_per_item": cfg.max_audio_seconds,
-                  "tokenize": profile_stage(torch, lambda: codec.inference_tokenize(wav, lens)),
-                  "detokenize": profile_stage(torch, lambda: codec.inference_detokenize(codes, clen))}
+        result = {"gpu": gpu, "config": name, **CONFIGS[name], "batch": 8, "seconds_per_item": cfg.max_audio_seconds}
+        for program in ("graph", "eager"):
+            with aot.eager() if program == "eager" else contextlib.nullcontext():
+                result[program] = {
+                    "tokenize": profile_stage(torch, lambda: codec.inference_tokenize(wav, lens)),
+                    "detokenize": profile_stage(torch, lambda: codec.inference_detokenize(codes, clen))}
         (out_dir / f"profile_{name}.json").write_text(json.dumps(result, indent=1))
-        for stage in ("tokenize", "detokenize"):
-            r = result[stage]
-            print(f"[{name}/{stage}] wall {r['wall_ms']:.3f} ms (traced {r['traced_wall_ms']:.3f}), "
+        for program, stage in ((p, s) for p in ("graph", "eager") for s in ("tokenize", "detokenize")):
+            r = result[program][stage]
+            print(f"[{name}/{stage}/{program}] wall {r['wall_ms']:.3f} ms (traced {r['traced_wall_ms']:.3f}), "
                   f"device {r['device_ms']:.3f} ms in {r['device_launches']} launches, {idle_text(r)}", flush=True)
             print(f"    groups (ms): {json.dumps({g: round(v, 3) for g, v in r['groups_ms'].items()})}", flush=True)
             for k in r["kernels"][:12]:
