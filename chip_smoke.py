@@ -42,22 +42,30 @@ Phases, any failure exits non-zero:
      FLAC and a WAV into reconstructions from a saved reference-layout
      checkpoint;
   5. train (no hand kernel runs there: the training path is dense f32),
-     each run a child process with deterministic kernels: full-width codec
-     GAN steps through ``python -m simwhisper_codec_tpu_torch.experiments.codec.train``
-     (ms a step, audio seconds trained a GPU second, peak memory), a fresh
-     process resuming from a checkpoint bit for bit, the SIGKILL soak at
-     --smoke width, one GAN step on the card against the CPU, and the
-     trainer and ``AudioCodec(data_parallel=True)`` under a world-size-1
-     NCCL group against runs without it (``--dp_gpus N`` runs only those
-     over N GPUs);
+     each run a child process with deterministic kernels, every step a CUDA
+     graph captured after its warm-up step (``utils/aot.py``'s
+     ``StepProgram``): full-width codec GAN steps through ``python -m
+     simwhisper_codec_tpu_torch.experiments.codec.train`` (ms a step, audio
+     seconds trained a GPU second, peak memory); ``--check train-graph``:
+     full-width codec GAN steps and the recipe's three decayed epochs
+     captured against ``aot.eager()``, bit for bit, with a load between
+     (eager and replayed ms a step, warm-up and capture ms, peak memory of
+     each); then, side by side, a fresh process resuming from a checkpoint
+     bit for bit (capturing again after the load), the SIGKILL soak at
+     --smoke width, one GAN step on the card against the CPU (eagerly), and
+     the trainer (captured over NCCL) and ``AudioCodec(data_parallel=True)``
+     under a world-size-1 NCCL group against runs without it (``--dp_gpus
+     N`` runs only those over N GPUs);
   6. the variant modules and the HiFi-GAN continuation recipe
      (``variants_phase``): the encoder's hidden states at full width with the
      f32 B1 / B5 kernels against dense attention (launch counts read around
      each run), the semantic encoder, the Vocos variants, the STFT and the
      MDCT / IMDCT card against CPU; then, in child processes, the recipe at
      full width (data prep, Whisper-encoder features, 3 epochs of
-     ``HifiGanConfig(768, 512)`` at batch 32 x 8960), a fresh process
-     resuming from epoch 3's checkpoint with its state bit for bit, and
+     ``HifiGanConfig(768, 512)`` at batch 32 x 8960, the step captured at
+     epoch 1 and replayed after, each epoch's rate 2e-4 * 0.9999^e in f32),
+     a fresh process resuming from epoch 3's checkpoint with its state bit
+     for bit (capturing again), and
      HuBERT-base feature extraction; the HiFi-GAN generator card against CPU;
   7. the tools (``tools_phase``): the FLOP ledger's FLOPs per audio second
      and MFU per mode (phase 3's batch times over the card's dense bf16
@@ -1514,9 +1522,11 @@ def voice(rng, seconds: float, sr: int) -> np.ndarray:
 def training_phase(torch) -> None:
     """The discriminators timed with deterministic kernels
     (``discriminator_timing``); full-width codec GAN steps through the
-    trainer (CodecConfig(), seed 0, batch 16 x 2 s, lr 2e-4): steps 1-2 warm
-    up, 3-6 are timed; a fresh process resumes from step 3's checkpoint and
-    must log steps 4-6 bit for bit; then, side by side, the SIGKILL soak at
+    trainer (CodecConfig(), seed 0, batch 16 x 2 s, lr 2e-4): step 1 warms
+    up and captures the step's CUDA graph, 2-6 replay it, 3-6 are timed;
+    the ``--check train-graph`` child (``train_graph_check``); then, side by
+    side, a fresh process resuming from step 3's checkpoint (capturing
+    again), which must log steps 4-6 bit for bit, the SIGKILL soak at
     --smoke width, one GAN step on the card against the CPU, and the DP
     checks under a world-size-1 NCCL group (``dp_phase``)."""
     from simwhisper_codec_tpu_torch.utils.audio_io import save_audio
@@ -1540,15 +1550,25 @@ def training_phase(torch) -> None:
         assert [r["step"] for r in log_a] == list(range(1, 7)), log_a
         for r in log_a:
             assert all(np.isfinite(r[k]) for k in LOSS_KEYS), r
+        assert [r["program"] for r in log_a] == ["captured"] + ["replayed"] * 5, log_a
         timed = [r["step_ms"] for r in log_a if r["step"] >= 3]
         ms = float(np.mean(timed))
-        log(f"[train] {gpu_line()}: full width, batch 16 x 2 s: {ms:.1f} ms a step (steps 3-6: "
-            f"{', '.join(f'{v:.1f}' for v in timed)}), {16 * 2.0 / (ms / 1e3):.1f} audio s trained a GPU s, "
-            f"peak max_memory_allocated {log_a[-1]['max_memory_allocated'] / 1e9:.2f} GB")
+        log(f"[train] {gpu_line()}: full width, batch 16 x 2 s: {ms:.1f} ms a step replayed (steps 3-6: "
+            f"{', '.join(f'{v:.1f}' for v in timed)}; step 1, the warm-up step and the capture, "
+            f"{log_a[0]['step_ms']:.1f}), {16 * 2.0 / (ms / 1e3):.1f} audio s trained a GPU s, "
+            f"peak max_memory_allocated {log_a[-1]['max_memory_allocated'] / 1e9:.2f} GB; "
+            + "; ".join(re.sub(r"^.*INFO : ", "", line) for line in (tmp / "A.log").read_text().splitlines()
+                        if "signature(s)" in line))
         losses = {r["step"]: {k: r[k] for k in LOSS_KEYS} for r in log_a}
         log(f"[train] losses: {json.dumps(losses)} (run: {wall_a:.1f} s; "
             + "; ".join(re.sub(r"^.*INFO : ", "", line) for line in (tmp / "A.log").read_text().splitlines()
                         if "models ready" in line or "saved in" in line) + ")")
+
+        text = finish("train-graph", start([__file__, "--check", "train-graph"], tmp / "graph.log"), tmp / "graph.log",
+                      600)
+        for line in text.splitlines():
+            if line.startswith("[train-graph]"):
+                log(line)
 
         t0 = time.perf_counter()
         children = {
@@ -1575,15 +1595,21 @@ def training_phase(torch) -> None:
         log(f"[train] side by side, each child's wall time (s): {json.dumps(walls)}")
         log_b = train_log(tmp / "B")
         assert [r["step"] for r in log_b] == [4, 5, 6], log_b
+        assert [r["program"] for r in log_b] == ["captured", "replayed", "replayed"], log_b
         for rb in log_b:
             ra = log_a[rb["step"] - 1]
             assert all(ra[k] == rb[k] for k in LOSS_KEYS), f"resumed step {rb['step']} differs: {ra} vs {rb}"
-        log(f"[train] full width: a fresh process resumed from step 3's checkpoint logs steps 4-6 bit for bit "
-            f"equal to the continuous run")
+        log(f"[train] full width: a fresh process resumed from step 3's checkpoint (step 4 its warm-up and "
+            f"capture, 5-6 replays) logs steps 4-6 bit for bit equal to the continuous run's replays")
         soak = json.loads((tmp / "soak" / "SOAK_REPORT.json").read_text())
         assert soak["equivalent"] and "SIGKILL" in outs["soak"], soak
-        log(f"[train] soak (--smoke, 30 steps): SIGKILL at logged step >= {soak['kill_step']}, resumed from step "
-            f"{soak['resume_step']}, {soak['post_resume_points_checked']} post-resume losses bit-equal")
+        soak_a, soak_b = (train_log(tmp / "soak" / run) for run in ("runA", "runB"))
+        assert soak_a[0]["program"] == "captured" and {r["program"] for r in soak_a[1:]} == {"replayed"}, soak_a
+        resumed_rows = [r for r in soak_b if r["step"] > soak["resume_step"]][-(30 - soak["resume_step"]):]
+        assert [r["program"] for r in resumed_rows] == ["captured"] + ["replayed"] * (len(resumed_rows) - 1), soak_b
+        log(f"[train] soak (--smoke, 30 steps, captured): SIGKILL at logged step >= {soak['kill_step']}, resumed "
+            f"from step {soak['resume_step']} (captured again), {soak['post_resume_points_checked']} post-resume "
+            f"losses bit-equal")
         for name in ("card-vs-cpu", "dp"):
             for line in outs[name].splitlines():
                 if line.startswith("[train]"):
@@ -1656,10 +1682,10 @@ def informative_smoke_model(torch):
 def card_vs_cpu_check(torch) -> None:
     """One codec GAN step at --smoke width (batch 2 x 0.5 s) on the CPU and on
     the card from the same state, TF32 off (the CPU replaying the card's
-    leaky-ReLU branches): losses within rtol 1e-4, every gradient (codec and
-    discriminator) within GRAD_TOL; the card's step twice
-    from the same state gives equal bits (deterministic kernels, no hand
-    kernel launched)."""
+    leaky-ReLU branches), under ``aot.eager()``: losses within rtol 1e-4,
+    every gradient (codec and discriminator) within GRAD_TOL; the card's step
+    twice from the same state gives equal bits (deterministic kernels, no
+    hand kernel launched)."""
     import copy
 
     from simwhisper_codec_tpu_torch.experiments.codec.train import SMOKE, segment_mel, set_determinism
@@ -1670,6 +1696,7 @@ def card_vs_cpu_check(torch) -> None:
     from simwhisper_codec_tpu_torch.ops.mel import log_mel
     from simwhisper_codec_tpu_torch.train.codec_gan import codec_gan_step, init_codec_gan_state
     from simwhisper_codec_tpu_torch.train.gan import make_mel_loss_constants
+    from simwhisper_codec_tpu_torch.utils import aot
 
     set_determinism()
     model = informative_smoke_model(torch)
@@ -1694,7 +1721,10 @@ def card_vs_cpu_check(torch) -> None:
         state = init_codec_gan_state(copy.deepcopy(model).to(device), copy.deepcopy(disc).to(device))
         batch = {"mel": mel.to(device), "audio": audio.to(device),
                  "mel_lens": torch.full((2,), mel.shape[1], dtype=torch.int64, device=device)}
-        metrics = codec_gan_step(state, batch, make_mel_loss_constants().to(device))
+        # eagerly: the gradients are read after the step, and the leaky ReLU's
+        # branches are recorded in Python (a capture would run it twice)
+        with aot.eager():
+            metrics = codec_gan_step(state, batch, make_mel_loss_constants().to(device))
         grads = {f"codec.{k}": p.grad.cpu() for k, p in state.model.named_parameters() if p.grad is not None}
         grads.update({f"disc.{k}": p.grad.cpu() for k, p in state.discriminator.named_parameters()})
         return metrics, grads
@@ -1784,6 +1814,8 @@ def dp_phase(torch, n_gpus: int, work: Path) -> None:
     finish("DP workers", proc, work / "dp.log", 600)
     log_s, log_d = train_log(work / "single"), train_log(work / "dp")
     assert [r["step"] for r in log_s] == [r["step"] for r in log_d] == [1, 2, 3]
+    for rows in (log_s, log_d):  # the DP step's all-reduce is captured over NCCL
+        assert [r["program"] for r in rows] == ["captured", "replayed", "replayed"], rows
     worst = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12) for a, b in zip(log_s, log_d) for k in LOSS_KEYS)
     res = json.loads((work / "codec.json").read_text())
     assert res["world_size"] == n_gpus and res["codes_equal"], res
@@ -1792,10 +1824,195 @@ def dp_phase(torch, n_gpus: int, work: Path) -> None:
     else:
         assert worst <= 1e-4 and res["wave_max_abs_diff"] <= 1e-5, (worst, res)
     log(f"[train] {gpu_line()} (x{torch.cuda.device_count()}): DP over {n_gpus} GPU(s) (NCCL, torchrun): "
-        f"trainer losses at steps 1-3 worst relative difference "
+        f"trainer losses at steps 1-3 (step 1 captured, 2-3 replayed) worst relative difference "
         f"{worst:.3g} against one process; AudioCodec(data_parallel=True) codes equal, waveforms "
         f"{'bit-equal' if res['waves_equal'] else 'max |d| ' + format(res['wave_max_abs_diff'], '.3g')} "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+GRAPH_STEPS = 6  # codec GAN steps of --check train-graph; the state goes through host memory after step 2
+GRAPH_RELOAD = 2
+GRAPH_CODEC_BATCH = (16, 2.0)  # the trainer's batch: 16 crops of 2 s
+GRAPH_RECIPE_BATCH = (32, 28)  # the recipe's: 32 segments of 28 feature frames (8960 samples)
+
+
+def host_copy(torch, x):
+    """A nested state with every tensor cloned to the host."""
+    if isinstance(x, dict):
+        return {k: host_copy(torch, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(host_copy(torch, v) for v in x)
+    return x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else x
+
+
+def first_difference(torch, a, b, where: str = "state") -> str:
+    """The first place two nested states differ in a bit, or ""."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return f"{where} (keys)"
+        return next((d for k in a if (d := first_difference(torch, a[k], b[k], f"{where}.{k}"))), "")
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return f"{where} (length)"
+        return next((d for i, (u, v) in enumerate(zip(a, b)) if (d := first_difference(torch, u, v, f"{where}[{i}]"))),
+                    "")
+    if isinstance(a, torch.Tensor):
+        return "" if a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b) else where
+    return "" if a == b else where
+
+
+def graph_run(torch, make_state, program_of, step, batches, eager: bool, after_step=None, reload_after=None) -> tuple:
+    """``step(state, batch)`` over ``batches`` from a fresh ``make_state()``,
+    through its program (captured at the first step) or under
+    ``aot.eager()``; after the step numbered ``reload_after`` the state goes
+    through host memory and back, as a resume loads it (the load drops the
+    program's graphs).  Returns the run's record (losses, ms a step, how each
+    step ran, warm-up and capture ms of each capture, peak memory) and the
+    final state on the host."""
+    import gc
+
+    from simwhisper_codec_tpu_torch.utils import aot
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = make_state()
+    program = program_of(state)
+    run = {"losses": [], "ms": [], "programs": [], "captures": []}
+    with aot.eager() if eager else contextlib.nullcontext():
+        for i, batch in enumerate(batches, start=1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run["losses"].append(step(state, batch))  # floats: the step has finished
+            torch.cuda.synchronize()
+            run["ms"].append((time.perf_counter() - t0) * 1e3)
+            run["programs"].append(program.source)
+            if program.source == "captured":
+                run["captures"].append((program.warm_ms, program.capture_ms))
+            if after_step is not None:
+                after_step(state)
+            if i == reload_after:
+                state.load_state_dict(host_copy(torch, state.state_dict()))
+    run["peak"] = torch.cuda.max_memory_allocated(dev)
+    final = host_copy(torch, state.state_dict())
+    del state, program
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, final
+
+
+def graph_pair_line(name: str, eager: dict, graph: dict, timed) -> str:
+    """Eager and replayed ms a step over the steps ``timed`` (1-based), each capture's ms, peak memory."""
+    each = {k: [r["ms"][i - 1] for i in timed] for k, r in (("eager", eager), ("graph", graph))}
+    listed = {k: ", ".join(f"{v:.1f}" for v in vals) for k, vals in each.items()}
+    captures = "; ".join(f"warm-up step {w:.1f} ms, capture {c:.1f} ms" for w, c in graph["captures"])
+    return (f"{name}: eager {np.mean(each['eager']):.1f} ms a step, replayed {np.mean(each['graph']):.1f} (steps "
+            f"{', '.join(map(str, timed))}: eager {listed['eager']}; replayed {listed['graph']}); captures: "
+            f"{captures}; peak max_memory_allocated eager {eager['peak'] / 1e9:.2f} GB, captured "
+            f"{graph['peak'] / 1e9:.2f} GB")
+
+
+def train_graph_check(torch) -> None:
+    """``--check train-graph`` (a child with deterministic kernels): the
+    training steps as CUDA graphs against ``aot.eager()``, bit for bit.
+    (1) ``GRAPH_STEPS`` full-width codec GAN steps (``CodecConfig()``, seed 0,
+    batch 16 x 2 s of voices, lr 2e-4): step 1 warms up and captures, the
+    state goes through host memory after step 2 (the load drops the graphs:
+    step 3 captures again), the rest replay; the eager run does the same
+    load.  (2) The recipe's three epochs (``HifiGanConfig(768, 512)``, batch
+    32 x 8960, random features, one step an epoch, the rate decayed after
+    each): epoch 1 captures, epochs 2-3 replay with the decayed rate.  Each:
+    the losses, both models' parameters and spectral-norm vectors, both
+    optimizers' moments, steps and rates equal bit for bit; eager and
+    replayed ms a step, warm-up and capture ms, peak memory."""
+    import copy
+
+    from simwhisper_codec_tpu_torch.config import CodecConfig
+    from simwhisper_codec_tpu_torch.experiments.codec.train import segment_log_mel, segment_mel, set_determinism
+    from simwhisper_codec_tpu_torch.models.codec import init_params
+    from simwhisper_codec_tpu_torch.models.hifigan import Discriminator, Generator, HifiGanConfig, init_hifigan
+    from simwhisper_codec_tpu_torch.train.codec_gan import codec_gan_program, codec_gan_step, init_codec_gan_state
+    from simwhisper_codec_tpu_torch.train.gan import (
+        GanTrainState,
+        decay_learning_rate,
+        gan_program,
+        gan_train_step,
+        make_gan_optimizers,
+        make_mel_loss_constants,
+    )
+
+    set_determinism()
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    mel_consts = make_mel_loss_constants().to(dev)
+
+    cfg = CodecConfig()
+    model, disc = init_params(cfg, torch.Generator().manual_seed(0)), init_hifigan(
+        Discriminator(), torch.Generator().manual_seed(1))
+    rows, seconds = GRAPH_CODEC_BATCH
+    seg = segment_mel(cfg, int(seconds * 16000)).to(dev)
+    rng = np.random.default_rng(23)
+    batches = []
+    for _ in range(GRAPH_STEPS):
+        audio = torch.from_numpy(np.stack([voice(rng, seconds, 16000) for _ in range(rows)])).to(dev)
+        mel = segment_log_mel(seg, audio)["mel"]
+        batches.append({"mel": mel, "audio": audio,
+                        "mel_lens": torch.full((rows,), mel.shape[1], dtype=torch.int64, device=dev)})
+    codec = dict(make_state=lambda: init_codec_gan_state(copy.deepcopy(model).to(dev), copy.deepcopy(disc).to(dev)),
+                 program_of=lambda st: codec_gan_program(st, mel_consts),
+                 step=lambda st, b: codec_gan_step(st, b, mel_consts), batches=batches, reload_after=GRAPH_RELOAD)
+    eager, eager_state = graph_run(torch, eager=True, **codec)
+    graph, graph_state = graph_run(torch, eager=False, **codec)
+    assert graph["programs"] == ["captured", "replayed", "captured"] + ["replayed"] * (GRAPH_STEPS - 3), \
+        graph["programs"]
+    assert eager["programs"] == ["eager"] * GRAPH_STEPS, eager["programs"]
+    assert graph["losses"] == eager["losses"], (graph["losses"], eager["losses"])
+    diff = first_difference(torch, graph_state, eager_state)
+    assert not diff, f"the captured codec GAN steps differ from the eager ones at {diff}"
+    assert all(np.isfinite(v) for r in graph["losses"] for v in r.values()), graph["losses"]
+    log(f"[train-graph] {gpu}: {GRAPH_STEPS} full-width codec GAN steps (CodecConfig(), batch {rows} x {seconds:g} s) "
+        f"captured "
+        f"(step 1; again at step {GRAPH_RELOAD + 1} after the state went through host memory) and replayed, "
+        f"against aot.eager(): losses, parameters, spectral-norm vectors, both optimizers' moments, steps and "
+        f"rates bit for bit; " + graph_pair_line("codec GAN step", eager, graph, range(4, GRAPH_STEPS + 1)))
+    del model, disc, batches, eager_state, graph_state, codec
+
+    gcfg = HifiGanConfig(in_channels=768, upsample_initial_channel=512)
+    gen0 = init_hifigan(Generator(gcfg), torch.Generator().manual_seed(0))
+    disc0 = init_hifigan(Discriminator(), torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(24)
+    rows, frames = GRAPH_RECIPE_BATCH
+    batches = [{"features": torch.from_numpy(rng.standard_normal((rows, frames, gcfg.in_channels))
+                                             .astype(np.float32)).to(dev),
+                "audio": torch.from_numpy(np.stack([voice(rng, frames * 0.02, 16000) for _ in range(rows)])).to(dev)}
+               for _ in range(RECIPE_EPOCHS)]
+    rates = {True: [], False: []}
+
+    def make_recipe_state():
+        g, d = copy.deepcopy(gen0).to(dev), copy.deepcopy(disc0).to(dev)
+        return GanTrainState(g, d, *make_gan_optimizers(g, d, 2e-4))
+
+    def decay(eager_run):
+        def after(st):
+            decay_learning_rate(st, 0.9999)
+            rates[eager_run].append([float(opt.param_groups[0]["lr"]) for opt in (st.g_opt, st.d_opt)])
+        return after
+
+    recipe = dict(make_state=make_recipe_state, program_of=lambda st: gan_program(st, mel_consts),
+                  step=lambda st, b: gan_train_step(st, b, mel_consts), batches=batches)
+    eager, eager_state = graph_run(torch, eager=True, after_step=decay(True), **recipe)
+    graph, graph_state = graph_run(torch, eager=False, after_step=decay(False), **recipe)
+    assert graph["programs"] == ["captured"] + ["replayed"] * (RECIPE_EPOCHS - 1), graph["programs"]
+    want = [[float(f32_rate(e))] * 2 for e in range(1, RECIPE_EPOCHS + 1)]
+    assert rates[True] == rates[False] == want, (rates, want)
+    assert graph["losses"] == eager["losses"], (graph["losses"], eager["losses"])
+    diff = first_difference(torch, graph_state, eager_state)
+    assert not diff, f"the captured recipe steps differ from the eager ones at {diff}"
+    log(f"[train-graph] {gpu}: the recipe's {RECIPE_EPOCHS} epochs (HifiGanConfig(768, 512), batch {rows} x "
+        f"{frames * 320}, one step an epoch) captured at epoch 1 and replayed with each epoch's rate 2e-4 * 0.9999^e "
+        f"({', '.join(repr(r[0]) for r in want)}), against aot.eager(): losses and state bit for bit; "
+        + graph_pair_line("recipe step", eager, graph, tuple(range(2, RECIPE_EPOCHS + 1))))
 
 
 # -- phase 6: the variant modules and the HiFi-GAN continuation recipe --------
@@ -1996,6 +2213,15 @@ def recipe_log(folder: Path) -> str:
     return (folder / "train_log.txt").read_text()
 
 
+def f32_rate(epochs: int) -> np.float32:
+    """The recipe's rate after ``epochs`` decays: 2e-4 * 0.9999^e, each product
+    rounded to f32 (the rate is an f32 tensor, as ``inject_hyperparams``' is)."""
+    lr = np.float32(2e-4)
+    for _ in range(epochs):
+        lr = np.float32(lr * np.float32(0.9999))
+    return lr
+
+
 def check_features(folder: Path, n: int, frames) -> None:
     """``n`` finite [T, 1, 768] f32 feature files, T = frames(utterance id)."""
     files = sorted(folder.glob("*.npy"))
@@ -2039,8 +2265,9 @@ def recipe_phase(torch) -> None:
         wall = time.perf_counter() - t0
         text = recipe_log(out)
         epochs = [re.search(rf"epoch {e}: g_loss=(\S+) batches=(\d+) time=\S+ step_ms=(\S+) "
-                            rf"max_memory_allocated=(\d+)", text) for e in range(1, RECIPE_EPOCHS + 1)]
+                            rf"max_memory_allocated=(\d+) programs=(\S+)", text) for e in range(1, RECIPE_EPOCHS + 1)]
         assert all(m and m.group(2) == "1" and np.isfinite(float(m.group(1))) for m in epochs), text[-3000:]
+        assert [m.group(5) for m in epochs] == ["captured"] + ["replayed"] * (RECIPE_EPOCHS - 1), text[-3000:]
         step_ms = [float(m.group(3)) for m in epochs]
         peak = max(int(m.group(4)) for m in epochs)
         manifests = {s: json.loads((out / "save" / f"{s}.json").read_text()) for s in ("train", "valid", "test")}
@@ -2055,7 +2282,8 @@ def recipe_phase(torch) -> None:
         audio_s = 32 * 8960 / sr
         log(f"[recipe] {gpu_line()}: HiFi-GAN continuation at full width (Whisper-encoder features at "
             f"EncoderConfig(), random weights; HifiGanConfig(768, 512), batch 32 x 8960): {step:.1f} ms a step "
-            f"(steps 2-{RECIPE_EPOCHS}: {', '.join(f'{v:.1f}' for v in timed)}; step 1 {step_ms[0]:.1f}), "
+            f"replayed (steps 2-{RECIPE_EPOCHS}: {', '.join(f'{v:.1f}' for v in timed)}; step 1, the warm-up "
+            f"step and the capture, {step_ms[0]:.1f}), "
             f"{audio_s / (step / 1e3):.2f} audio s trained a GPU s, peak max_memory_allocated {peak / 1e9:.2f} GB; "
             f"g_loss by epoch {[float(m.group(1)) for m in epochs]}; run {wall:.1f} s ("
             + "; ".join(re.sub(r"^\S+ \S+ ", "", line) for line in text.splitlines() if "ready in" in line) + ")")
@@ -2082,19 +2310,22 @@ def recipe_phase(torch) -> None:
         resumed = re.search(rf"resumed from {last} \(next epoch {RECIPE_EPOCHS + 1}, step (\d+), state digest (\w+)\)",
                             recipe_log(out))
         ckpt = load_training_state(str(out / "checkpoints" / last), map_location="cpu")
-        lr = 2e-4
-        for _ in range(RECIPE_EPOCHS):
-            lr *= 0.9999
+        lr = float(f32_rate(RECIPE_EPOCHS))
         assert resumed and int(resumed.group(1)) == ckpt["step"] == RECIPE_EPOCHS, resumed
         assert resumed.group(2) == state_digest(ckpt), "the resumed state differs from the checkpoint"
-        assert all(ckpt[k]["param_groups"][0]["lr"] == lr for k in ("g_opt", "d_opt")), "learning rates"
-        assert re.search(rf"epoch {RECIPE_EPOCHS + 1}: g_loss=\S+ batches=1 ", recipe_log(out))
         del ckpt
+        for e in range(1, RECIPE_EPOCHS + 1):  # each epoch's decayed rate, as the replays read it
+            ckpt = load_training_state(str(out / "checkpoints" / f"epoch_{e:04d}.pt"), map_location="cpu")
+            assert all(float(ckpt[k]["param_groups"][0]["lr"]) == float(f32_rate(e)) for k in ("g_opt", "d_opt")), e
+            del ckpt
+        assert re.search(rf"epoch {RECIPE_EPOCHS + 1}: g_loss=\S+ batches=1 .* programs=captured$", recipe_log(out),
+                         re.M)
         hub = hubert_base_config()
         check_features(tmp / "hubert", 32, lambda stem: feat_extract_output_length(hub, samples[stem]))
-        log(f"[recipe] a fresh --resume process restored epoch {RECIPE_EPOCHS}'s checkpoint bit for bit (G, D, "
-            f"both optimizers' moments and steps, lr {lr!r}, step {RECIPE_EPOCHS}: equal state digests) and "
-            f"trained epoch {RECIPE_EPOCHS + 1}; --feature_type hubert --allow_random wrote 32 finite [T, 1, 768] "
+        log(f"[recipe] each epoch's checkpoint holds the rate 2e-4 * 0.9999^e in f32; a fresh --resume process "
+            f"restored epoch {RECIPE_EPOCHS}'s checkpoint bit for bit (G, D, both optimizers' moments and steps, "
+            f"lr {lr!r}, step {RECIPE_EPOCHS}: equal state digests) and trained epoch {RECIPE_EPOCHS + 1} "
+            f"(captured again); --feature_type hubert --allow_random wrote 32 finite [T, 1, 768] "
             f"features at hubert_base_config(); side by side {side_wall:.1f} s")
 
 
@@ -2616,7 +2847,7 @@ def main() -> int:
     ap.add_argument("--tp_gpus", type=int, default=0,
                     help="run only the tensor-parallel serving and dry-run checks of phase 8 over this many GPUs "
                          "(NCCL; at 4: 1 data x 4 model, then 2 x 2)")
-    ap.add_argument("--check", choices=("card-vs-cpu", "dp", "tp"), default=None,
+    ap.add_argument("--check", choices=("card-vs-cpu", "dp", "tp", "train-graph"), default=None,
                     help="one check of phase 5 or 8, as the full run starts it in a child process")
     ap.add_argument("--work_dir", default=None, help="scratch directory of --dp_gpus / --tp_gpus / --check dp|tp")
     ap.add_argument("--tp_model_axis", type=int, default=2, help="--check tp: ranks of the model axis")
@@ -2633,6 +2864,9 @@ def main() -> int:
         return 0
     if args.check == "dp":
         dp_worker(torch, Path(args.work_dir))
+        return 0
+    if args.check == "train-graph":
+        train_graph_check(torch)
         return 0
     if args.check == "tp":
         tp_worker(torch, Path(args.work_dir), args.tp_model_axis, args.tp_backend)

@@ -18,6 +18,16 @@ the same global batch (rounded up to a multiple of the world size) and
 trains on its own rows; gradients and metrics are averaged over the ranks;
 rank 0 alone writes logs and checkpoints (``ckpt_{step:07d}.pt``).
 
+Compiled programs (``utils/aot.py``), the twins of the JAX trainer's
+``warm_jit`` / ``jax.jit``: the GAN step (``train/codec_gan.py``), the
+segment log-mel and the probe's forward each run as one CUDA graph per
+signature on the card.  Step 1 is the warm-up step plus the capture, and its
+log row says so (``"program": "captured"``); the rows after it are replays.
+The first capture logs the step's signature count, capture time and peak
+memory.  ``--aot_dir`` keeps the kernel libraries for later runs
+(``ops._cuda.use_aot_dir``); graphs are captured again in each process.  On
+the CPU, and over a gloo group, the programs run eagerly.
+
 Held-out quality probe (``--eval_every N``): a fixed batch (the centre crops
 of ``--eval_folder``'s files, else unseen-seed synthetic voices 10000+i)
 goes through the training forward under ``no_grad`` every N steps and at
@@ -35,11 +45,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import logging
 import os
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -53,10 +65,12 @@ from simwhisper_codec_tpu_torch.config import (
 )
 from simwhisper_codec_tpu_torch.models.codec import f32_precision, init_params, resolve_device, training_forward
 from simwhisper_codec_tpu_torch.models.hifigan import Discriminator, init_hifigan
+from simwhisper_codec_tpu_torch.ops import _cuda
 from simwhisper_codec_tpu_torch.ops.mel import MelConstants, log_mel
 from simwhisper_codec_tpu_torch.parallel import dist
-from simwhisper_codec_tpu_torch.train.codec_gan import codec_gan_step, init_codec_gan_state
+from simwhisper_codec_tpu_torch.train.codec_gan import codec_gan_program, codec_gan_step, init_codec_gan_state
 from simwhisper_codec_tpu_torch.train.gan import make_mel_loss_constants
+from simwhisper_codec_tpu_torch.utils import aot
 from simwhisper_codec_tpu_torch.utils.audio_io import find_audio_files, load_audio, set_logging
 from simwhisper_codec_tpu_torch.utils.checkpoint import (
     load_reference_checkpoint,
@@ -113,6 +127,25 @@ def segment_mel(cfg: CodecConfig, segment_samples: int) -> MelConstants:
                              nb_max_frames=segment_samples // cfg.feature_extractor.hop_length,
                              chunk_length=max(1, segment_samples // cfg.feature_extractor.sampling_rate))
     return MelConstants(fe)
+
+
+def segment_log_mel(seg_mel: MelConstants, audio: torch.Tensor) -> dict:
+    """The segment log-mel program's body: (B, S) crops -> {"mel": (B, T_mel, n_mels)}."""
+    with torch.no_grad(), f32_precision("highest"):
+        return {"mel": log_mel(seg_mel, audio)}
+
+
+def probe_forward(model, mel: torch.Tensor, lens: torch.Tensor) -> dict:
+    """The probe's program body: the training forward without gradients -> {"y": (B, S)}."""
+    with torch.no_grad(), f32_precision("highest"):
+        return {"y": training_forward(model, mel, lens)["reconstructed_audio"]}
+
+
+def log_first_capture(program: aot.CapturedProgram, device: torch.device) -> None:
+    """The twin of ``warm_jit``'s source / fingerprint line, once a capture has run."""
+    logger.info("%s: %d signature(s); warm-up step %.1f ms, then captured in %.1f ms; peak max_memory_allocated "
+                "%d", program.name, program.count, program.warm_ms, program.capture_ms,
+                torch.cuda.max_memory_allocated(device))
 
 
 def synthetic_voice(seed: int, seconds: float, sr: int) -> np.ndarray:
@@ -174,10 +207,12 @@ class QualityProbe:
             self.mel = log_mel(seg_mel, torch.from_numpy(self.batch).to(device))
         self.lens = torch.full((len(self.batch),), mel_frames, dtype=torch.int64, device=device)
         self.log_path = log_path
+        self.forward: Optional[aot.CapturedProgram] = None  # the program of the model last scored
 
     def __call__(self, model, step: int) -> dict:
-        with torch.no_grad(), f32_precision("highest"):
-            y = training_forward(model, self.mel, self.lens)["reconstructed_audio"]
+        if self.forward is None or self.forward.fn.args[0] is not model:
+            self.forward = aot.CapturedProgram(functools.partial(probe_forward, model), "probe_forward")
+        y = self.forward(self.mel, self.lens)["y"]
         rec = dict(step=step, **score_batch(self.batch, y[:, : self.segment_samples].cpu().numpy(), self.sr))
         logger.info("quality %s", json.dumps(rec))
         with open(self.log_path, "a") as f:
@@ -206,6 +241,9 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     p.add_argument("--data_parallel", action="store_true",
                    help="split each global batch over torchrun's ranks (one GPU each)")
+    p.add_argument("--aot_dir", default=None,
+                   help="directory of the compiled kernel libraries, reused by later runs (also via "
+                        "SIMWHISPER_AOT_DIR); the CUDA graphs of the step are captured anew in each process")
     return p, p.parse_args(argv)
 
 
@@ -214,6 +252,8 @@ def main(argv=None) -> None:
     parser, args = parse_args(argv)
     set_determinism()
     device = resolve_device(args.device)
+    if args.aot_dir is not None and device.type == "cuda":
+        _cuda.use_aot_dir(args.aot_dir)
     owns_group = args.data_parallel and not torch.distributed.is_initialized()
     ctx = dist.init_from_env(device) if args.data_parallel else dist.DistContext()
     device = dist.local_device(ctx, device)
@@ -263,8 +303,11 @@ def main(argv=None) -> None:
     segment_samples = segment_samples // (cfg.mel_hop_length * 2) * (cfg.mel_hop_length * 2)
     mel_frames = segment_samples // cfg.mel_hop_length
     seg_mel = segment_mel(cfg, segment_samples).to(device)
+    seg_log_mel = aot.CapturedProgram(functools.partial(segment_log_mel, seg_mel), "segment_log_mel")
     mel_consts = make_mel_loss_constants(sample_rate=cfg.input_sample_rate).to(device)
+    program = codec_gan_program(state, mel_consts, ctx)
     n_local = rows.stop - rows.start
+    mel_lens = torch.full((n_local,), mel_frames, dtype=torch.int64, device=device)
 
     log_path = out / "train_log.jsonl"
     start_step = state.step + 1
@@ -283,15 +326,15 @@ def main(argv=None) -> None:
         # one, and every rank crops the same global batch
         audio = crop_batch(np.random.default_rng((args.seed, step)), wavs, args.batch_size, segment_samples)
         audio_t = torch.from_numpy(audio[rows]).to(device)
-        with torch.no_grad(), f32_precision("highest"):
-            mel = log_mel(seg_mel, audio_t)
-        batch = {"mel": mel, "mel_lens": torch.full((n_local,), mel_frames, dtype=torch.int64, device=device),
-                 "audio": audio_t}
+        batch = {"mel": seg_log_mel(audio_t)["mel"], "mel_lens": mel_lens, "audio": audio_t}
         t_step = time.perf_counter()
         metrics = codec_gan_step(state, batch, mel_consts, ctx)  # floats: the step has finished
         step_ms = (time.perf_counter() - t_step) * 1e3
+        if program.source == "captured" and ctx.rank == 0:
+            log_first_capture(program, device)
         if ctx.rank == 0 and (step % args.log_every == 0 or step == args.steps):
-            rec = dict(metrics, step=step, time=round(time.time() - t0, 1), step_ms=step_ms)
+            # step_ms of a "captured" row is the warm-up step plus the capture
+            rec = dict(metrics, step=step, time=round(time.time() - t0, 1), step_ms=step_ms, program=program.source)
             if device.type == "cuda":
                 rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
             logger.info("%s", json.dumps(rec))

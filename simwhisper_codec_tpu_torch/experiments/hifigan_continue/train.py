@@ -19,7 +19,13 @@ The log line "resumed from ..." carries ``utils.checkpoint.state_digest``
 of the restored state.  Progress goes to ``train_log.txt``.
 
 Runs on ``cuda`` unless ``--device cpu``, with deterministic kernels
-(``experiments/codec/train.py::set_determinism``), f32 with TF32 off.
+(``experiments/codec/train.py::set_determinism``), f32 with TF32 off.  The
+GAN step is one program per batch signature (``train/gan.py``, the twin of
+the JAX recipe's ``jax.jit`` of its step): a CUDA graph captured after the
+first epoch's first step, which is the warm-up; the last short batch of an
+epoch is dropped, so a run has one signature.  Each epoch's decayed rate is
+a device tensor the replays read.  The epoch line lists how each step ran
+(``programs=captured,replayed,...``).
 
 Run:  python -m simwhisper_codec_tpu_torch.experiments.hifigan_continue.train --data_folder wavs
       python -m simwhisper_codec_tpu_torch.experiments.hifigan_continue.train --smoke --device cpu
@@ -36,7 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from simwhisper_codec_tpu_torch.experiments.codec.train import set_determinism
+from simwhisper_codec_tpu_torch.experiments.codec.train import log_first_capture, set_determinism
 from simwhisper_codec_tpu_torch.experiments.hifigan_continue.data_prepare import prepare_dataset
 from simwhisper_codec_tpu_torch.experiments.hifigan_continue.extract_features import extract_manifest, make_extractor
 from simwhisper_codec_tpu_torch.models.codec import f32_precision, resolve_device
@@ -44,6 +50,7 @@ from simwhisper_codec_tpu_torch.models.hifigan import Discriminator, Generator, 
 from simwhisper_codec_tpu_torch.train.gan import (
     GanTrainState,
     decay_learning_rate,
+    gan_program,
     gan_train_step,
     make_gan_optimizers,
     make_mel_loss_constants,
@@ -161,22 +168,27 @@ def train(args, parser, out: Path, device: torch.device) -> None:
         start_epoch = int(saved[-1].stem.split("_")[1]) + 1
         logger.info("resumed from %s (next epoch %d, step %d, state digest %s)", saved[-1].name, start_epoch,
                     state.step, state_digest(state.state_dict()))
+    program = gan_program(state, mel_consts)
     for epoch in range(start_epoch, args.epochs + 1):
         t0 = time.time()
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        g_losses, step_ms = [], []
+        g_losses, step_ms, sources = [], [], []
         for batch in make_batches(train_manifest, feature_dir, args.batch_size, args.segment_size,
                                   args.feature_hop, rng, args.sample_rate):
             batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
             t_step = time.perf_counter()
             g_losses.append(gan_train_step(state, batch, mel_consts)["g_loss"])  # floats: the step has finished
-            step_ms.append((time.perf_counter() - t_step) * 1e3)
+            step_ms.append((time.perf_counter() - t_step) * 1e3)  # a captured step: warm-up plus capture
+            sources.append(program.source)
+            if program.source == "captured":
+                log_first_capture(program, device)
         decay_learning_rate(state, args.lr_gamma)
         avg = sum(g_losses) / max(len(g_losses), 1)
         peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-        logger.info("epoch %d: g_loss=%.4f batches=%d time=%.1fs step_ms=%s max_memory_allocated=%s", epoch, avg,
-                    len(g_losses), time.time() - t0, ",".join(f"{v:.1f}" for v in step_ms), peak)
+        logger.info("epoch %d: g_loss=%.4f batches=%d time=%.1fs step_ms=%s max_memory_allocated=%s programs=%s",
+                    epoch, avg, len(g_losses), time.time() - t0, ",".join(f"{v:.1f}" for v in step_ms), peak,
+                    ",".join(sources))
         if avg < best_loss or epoch % args.keep_checkpoint_interval == 0:
             best_loss = min(best_loss, avg)
             ckpt_dir.mkdir(parents=True, exist_ok=True)

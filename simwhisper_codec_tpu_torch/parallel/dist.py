@@ -77,8 +77,17 @@ def local_device(ctx: DistContext, device: torch.device) -> torch.device:
     return torch.device("cuda", ctx.local_rank) if device.type == "cuda" and ctx.grouped else device
 
 
+def capturable(ctx: DistContext) -> bool:
+    """Whether a CUDA graph can hold the context's collectives: no group, or an
+    NCCL one.  Gloo's (ranks sharing a card) run on the host and cannot be
+    captured."""
+    return not ctx.grouped or dist.get_backend(ctx.group) == "nccl"
+
+
 def average_grads(ctx: DistContext, params: Iterable[torch.Tensor]) -> None:
-    """Replace every gradient by its mean over the context's ranks (one flat all-reduce over its group)."""
+    """Replace every gradient by its mean over the context's ranks (one flat
+    all-reduce over its group); device work only, so a captured step holds it
+    over NCCL."""
     if not ctx.grouped:
         return
     grads = [p.grad for p in params if p.grad is not None]
@@ -94,7 +103,9 @@ def average_grads(ctx: DistContext, params: Iterable[torch.Tensor]) -> None:
 
 
 def average_metrics(ctx: DistContext, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """Scalar metrics averaged over the context's ranks, as Python floats (for logging)."""
+    """Scalar metrics averaged over the context's ranks, as Python floats (for
+    logging).  It reads the device on the host: a step program returns its
+    metrics as tensors and this runs after the replay."""
     names = sorted(metrics)
     vals = torch.stack([metrics[k].detach().reshape(()).to(torch.float32) for k in names])
     if ctx.grouped:

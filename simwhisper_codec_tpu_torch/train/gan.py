@@ -11,12 +11,23 @@ applied per epoch by the caller; losses MSE-GAN (weight 1) + feature match
 Every step runs under ``f32_precision("highest")`` (no TF32), the
 counterpart of the JAX package's f32 training.  ``dist`` (a
 ``parallel.dist.DistContext``) averages gradients and metrics over ranks.
+
+A step is one program per batch signature (``utils/aot.py``'s
+``StepProgram``, the twin of the recipe's ``jax.jit`` of its step): a CUDA
+graph on the card, captured after one eager warm-up step; eager on the CPU
+and over a gloo group.  Its body reads nothing on the host; the step
+counter and the metrics' read to floats run after it.  The learning rate is
+a 0-d f32 tensor on the parameters' device (the twin of
+``optax.inject_hyperparams``), so ``decay_learning_rate`` reaches the
+replays.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+import functools
+import logging
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +36,11 @@ from torch import nn
 from simwhisper_codec_tpu_torch.models.codec import f32_precision
 from simwhisper_codec_tpu_torch.models.hifigan import Discriminator, Generator
 from simwhisper_codec_tpu_torch.ops.mel import frame_signal, slaney_mel_filter_bank
+from simwhisper_codec_tpu_torch.parallel import dist as dist_ctx
 from simwhisper_codec_tpu_torch.parallel.dist import DistContext, average_grads, average_metrics
+from simwhisper_codec_tpu_torch.utils import aot
+
+logger = logging.getLogger(__name__)
 
 
 class MelLossConstants(nn.Module):
@@ -85,10 +100,36 @@ def feature_match_loss(feats_real, feats_fake) -> torch.Tensor:
     return sum(terms) / max(len(terms), 1)
 
 
-def adamw(params, learning_rate: float, b1: float, b2: float, weight_decay: float = 1e-4) -> torch.optim.AdamW:
-    """``optax.adamw`` (eps 1e-8; weight decay 1e-4 unless given): torch's own
-    default decay is 1e-2."""
-    return torch.optim.AdamW(params, lr=learning_rate, betas=(b1, b2), eps=1e-8, weight_decay=weight_decay)
+def adamw(params, learning_rate: float, b1: float, b2: float, weight_decay: float = 1e-4,
+          capturable: Optional[bool] = None) -> torch.optim.AdamW:
+    """``optax.adamw`` (eps 1e-8; weight decay 1e-4 unless given: torch's own
+    default decay is 1e-2) with its rate a 0-d f32 tensor on the parameters'
+    device.  ``capturable`` (default: on CUDA) keeps the step counts and bias
+    corrections on the device, as a CUDA graph needs; torch refuses it on the
+    CPU, where a tensor rate works without it."""
+    params = list(params)
+    device = params[0].device
+    capturable = device.type == "cuda" if capturable is None else capturable
+    lr = torch.tensor(learning_rate, dtype=torch.float32, device=device)
+    opt = torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=1e-8, weight_decay=weight_decay,
+                            capturable=capturable)
+    opt.register_load_state_dict_post_hook(functools.partial(_keep_form, [lr], capturable))
+    return opt
+
+
+def _keep_form(rates: List[torch.Tensor], capturable: bool, opt: torch.optim.Optimizer) -> None:
+    """After ``opt.load_state_dict``: the loaded rate copied into the group's
+    own tensor (also a float, from a checkpoint written before the rate was a
+    tensor), the optimizer's own ``capturable`` flag, and the step counts as
+    that flag keeps them (f32 on the parameters' device, else on the host;
+    such a checkpoint holds them on the host)."""
+    for group, lr in zip(opt.param_groups, rates):
+        lr.copy_(torch.as_tensor(group["lr"], dtype=torch.float32))
+        group["lr"], group["capturable"] = lr, capturable
+        for p in group["params"]:
+            state = opt.state.get(p)
+            if state and "step" in state:
+                state["step"] = state["step"].to(dtype=torch.float32, device=p.device if capturable else "cpu")
 
 
 def discriminator_step(disc: Discriminator, d_opt: torch.optim.Optimizer, fake: torch.Tensor, real: torch.Tensor,
@@ -119,12 +160,31 @@ def generator_losses(disc: Discriminator, mel_consts: MelLossConstants, fake: to
 
 
 def generator_update(loss: torch.Tensor, params: List[nn.Parameter], opt: torch.optim.Optimizer,
-                     dist: Optional[DistContext]) -> None:
-    """Backward into ``params`` only (D's weights take no gradient), average, step."""
+                     dist: Optional[DistContext]) -> torch.Tensor:
+    """Backward into ``params`` only (D's weights take no gradient), average,
+    step; returns the loss, detached."""
     opt.zero_grad(set_to_none=True)
     loss.backward(inputs=params)
     average_grads(dist or DistContext(), params)
     opt.step()
+    return loss.detach()
+
+
+def step_program(state, name: str, key: tuple, make_body: Callable, modules: Sequence[nn.Module],
+                 dist: Optional[DistContext]) -> aot.StepProgram:
+    """``state``'s program of one step, made at its first use: ``key`` holds
+    the step's non-tensor arguments, which the body bakes in.  A gloo group's
+    collectives cannot be captured: its step runs eagerly, logged."""
+    ctx = dist or DistContext()
+    full_key = (name, ctx.rank, ctx.world_size, ctx.grouped, id(ctx.group)) + key
+    program = state.programs.get(full_key)
+    if program is None:
+        capture = dist_ctx.capturable(ctx)
+        if not capture:
+            logger.info("%s: the process group's backend cannot be captured (gloo): the step runs eagerly", name)
+        program = aot.StepProgram(make_body(), name, modules, (state.g_opt, state.d_opt), capture=capture)
+        state.programs[full_key] = program
+    return program
 
 
 @dataclass
@@ -134,6 +194,7 @@ class GanTrainState:
     g_opt: torch.optim.Optimizer
     d_opt: torch.optim.Optimizer
     step: int = 0
+    programs: Dict[tuple, aot.StepProgram] = field(default_factory=dict, repr=False)  # see ``step_program``
 
     def state_dict(self) -> dict:
         """Both models (the spectral-norm vectors included), both optimizers'
@@ -156,28 +217,53 @@ def make_gan_optimizers(generator: nn.Module, discriminator: nn.Module, learning
             adamw(discriminator.parameters(), learning_rate, b1, b2))
 
 
+def gan_step_body(state: GanTrainState, mel_consts: MelLossConstants, dist: Optional[DistContext],
+                  mseg_weight: float, feat_match_weight: float, l1_spec_weight: float) -> Callable:
+    """The program of ``gan_train_step``: (features, audio) -> this rank's
+    metrics as 0-d tensors; it reads nothing on the host."""
+
+    def body(features: torch.Tensor, audio: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with f32_precision("highest"):
+            fake = state.generator(features)
+            metrics = discriminator_step(state.discriminator, state.d_opt, fake, audio, dist)
+            adv, fm, l1 = generator_losses(state.discriminator, mel_consts, fake, audio)
+            total = mseg_weight * adv + feat_match_weight * fm + l1_spec_weight * l1
+            g_loss = generator_update(total, list(state.generator.parameters()), state.g_opt, dist)
+        metrics.update(g_loss=g_loss, adv=adv.detach(), feat_match=fm.detach(), l1_spec=l1.detach())
+        return metrics
+
+    return body
+
+
+def gan_program(state: GanTrainState, mel_consts: MelLossConstants, dist: Optional[DistContext] = None,
+                mseg_weight: float = 1.0, feat_match_weight: float = 10.0,
+                l1_spec_weight: float = 45.0) -> aot.StepProgram:
+    """The step program ``gan_train_step`` runs for these arguments."""
+    weights = (mseg_weight, feat_match_weight, l1_spec_weight)
+    return step_program(state, "gan_train_step", (id(mel_consts),) + weights,
+                        lambda: gan_step_body(state, mel_consts, dist, *weights),
+                        (state.generator, state.discriminator), dist)
+
+
 def gan_train_step(state: GanTrainState, batch: Dict[str, torch.Tensor], mel_consts: MelLossConstants,
                    dist: Optional[DistContext] = None, mseg_weight: float = 1.0,
                    feat_match_weight: float = 10.0, l1_spec_weight: float = 45.0) -> Dict[str, float]:
     """G forward -> D step (detached fake) -> fresh scores -> G step.
     ``batch``: {"features": (B, T, C), "audio": (B, T * 320)}; returns the
     metrics as floats (averaged over ranks)."""
-    with f32_precision("highest"):
-        fake = state.generator(batch["features"])
-        metrics = discriminator_step(state.discriminator, state.d_opt, fake, batch["audio"], dist)
-        adv, fm, l1 = generator_losses(state.discriminator, mel_consts, fake, batch["audio"])
-        total = mseg_weight * adv + feat_match_weight * fm + l1_spec_weight * l1
-        generator_update(total, list(state.generator.parameters()), state.g_opt, dist)
+    program = gan_program(state, mel_consts, dist, mseg_weight, feat_match_weight, l1_spec_weight)
+    metrics = program(batch["features"], batch["audio"])
     state.step += 1
-    metrics.update(g_loss=total.detach(), adv=adv.detach(), feat_match=fm.detach(), l1_spec=l1.detach())
     return average_metrics(dist or DistContext(), metrics)
 
 
 def decay_learning_rate(state, gamma: float = 0.9999):
-    """Per-epoch ExponentialLR on both optimizers (train.yaml:246-252)."""
+    """Per-epoch ExponentialLR on both optimizers (train.yaml:246-252): each
+    rate tensor is scaled in place in f32, as ``inject_hyperparams``' traced
+    rate is, so a captured step reads the new rate at its next replay."""
     for opt in (state.g_opt, state.d_opt):
         for group in opt.param_groups:
-            group["lr"] *= gamma
+            group["lr"].mul_(gamma)
     return state
 
 

@@ -1,14 +1,14 @@
-"""Compiled serving programs: each codec direction captured once per input
-signature as a CUDA graph that replays the hand kernels.
+"""Compiled programs: each codec direction, and each training step, captured
+once per input signature as a CUDA graph.
 
 Counterpart of ``simwhisper_codec_tpu/utils/aot.py`` (``warm_jit``) and of
-the ``jax.jit`` programs of the JAX ``AudioCodec``: there each direction is
-one compiled program per padded input shape; here it is one
+the ``jax.jit`` programs of the JAX ``AudioCodec`` and trainers: there each
+is one compiled program per padded input shape; here it is one
 ``torch.cuda.CUDAGraph`` per signature, the signature being the input
 tensors' shapes, dtypes and devices plus the math flags a capture bakes in
 (TF32 for matmuls and cuDNN, cuDNN's deterministic / benchmark / enabled
-flags, the float32 matmul precision), as ``warm_jit._aval_sig`` keys on the
-avals.
+flags, the float32 matmul precision, deterministic algorithms), as
+``warm_jit._aval_sig`` keys on the avals.
 
 On CUDA the first call of a signature
   1. runs the function once, eagerly, on a side stream: that builds and
@@ -44,13 +44,26 @@ Graphs live only in the process: a later process skips ``nvcc`` through
 the kernel libraries kept under ``aot_dir`` (``ops._cuda.use_aot_dir``),
 but captures again, so ``count`` counts captures where the JAX package's
 ``trace_counts`` stays 0 on a warm start.
+
+A training step (``StepProgram``, the twin of the trainers' ``warm_jit`` /
+``jax.jit`` of the step) writes its state in place: the parameters, the
+optimizer moments and step counts, the spectral-norm vectors and the
+gradients, and returns 0-d tensors.  Its first call of a signature is a
+real step (the warm-up); the capture after it records the step without
+running it.  Its function may have no Python side effect (a step counter,
+a host read): the capture runs the Python once more, a replay never.  A
+state dict loaded into one of its models or optimizers drops its graphs
+(``Optimizer.load_state_dict`` replaces the moment tensors a graph would go
+on writing); the next call warms up and captures again.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Dict, Optional
+import time
+import weakref
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -73,7 +86,7 @@ def eager():
 def _flags() -> tuple:
     cudnn = torch.backends.cudnn
     return (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark,
-            cudnn.enabled, torch.get_float32_matmul_precision())
+            cudnn.enabled, torch.get_float32_matmul_precision(), torch.are_deterministic_algorithms_enabled())
 
 
 def signature(args) -> tuple:
@@ -126,7 +139,8 @@ class CapturedProgram:
     docstring).  ``count`` is the number of signatures seen (the twin of the
     JAX ``trace_counts`` entry); ``source`` says how the last call ran:
     ``"captured"`` (first call of a signature on the card), ``"replayed"``
-    or ``"eager"``."""
+    or ``"eager"``; ``warm_ms`` and ``capture_ms`` time the last capture's
+    warm-up call and the capture itself (host clock)."""
 
     def __init__(self, fn: Callable, name: str, pool: Optional[GraphPool] = None, capture: bool = True):
         self.fn = fn
@@ -135,6 +149,8 @@ class CapturedProgram:
         self._capture = capture
         self._programs: Dict[tuple, Optional[_Graph]] = {}  # signature -> graph; None: runs eagerly
         self.source: Optional[str] = None
+        self.warm_ms: Optional[float] = None
+        self.capture_ms: Optional[float] = None
 
     @property
     def count(self) -> int:
@@ -169,6 +185,7 @@ class CapturedProgram:
 
     def _warm_and_capture(self, args):
         dev = args[0].device
+        t0 = time.perf_counter()
         current = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(current)
@@ -176,6 +193,8 @@ class CapturedProgram:
             out = self.fn(*args)
         current.wait_stream(side)
         _map(lambda t: t.record_stream(current), out)  # the caller reads it on its stream
+        torch.cuda.synchronize(dev)  # the capture below synchronises too; here it times the warm-up
+        t1 = time.perf_counter()
         inputs = [a.clone() for a in args]  # outside the pool: never overwritten by another graph
         before = dict(_cuda.launch_counts)
         graph = torch.cuda.CUDAGraph()
@@ -186,4 +205,38 @@ class CapturedProgram:
             launches = {k: n - before.get(k, 0) for k, n in _cuda.launch_counts.items() if n != before.get(k, 0)}
             _cuda.launch_counts.clear()
             _cuda.launch_counts.update(before)
+        self.warm_ms, self.capture_ms = (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
         return out, _Graph(graph, inputs, outputs, launches)
+
+
+class StepProgram(CapturedProgram):
+    """A training step ``fn(*batch) -> {name: 0-d tensor}`` that writes the
+    state of ``modules`` and ``optimizers`` in place, as one program per
+    batch signature (see the module docstring).  On the card the first call
+    of a signature is the warm-up step, run eagerly on a side stream, whose
+    metrics it returns; the capture that follows leaves the state as the
+    warm-up left it, and each later call replays one step.  After a
+    capturing call the parameters' ``.grad`` are the graph's buffers,
+    written at each replay.  The program owns its memory pool."""
+
+    def __init__(self, fn: Callable, name: str, modules: Iterable[torch.nn.Module],
+                 optimizers: Iterable[torch.optim.Optimizer], capture: bool = True):
+        super().__init__(fn, name, GraphPool(), capture)
+        ref = weakref.ref(self)
+
+        def drop(*_):
+            program = ref()
+            if program is not None:
+                program.drop()
+
+        for module in modules:
+            module.register_load_state_dict_post_hook(drop)
+        for opt in optimizers:
+            opt.register_load_state_dict_post_hook(drop)
+
+    def drop(self) -> None:
+        """Forget every signature's graph: the next call warms up and captures
+        again, in a new pool (a pool whose graphs are all gone cannot take
+        another capture)."""
+        self._programs.clear()
+        self._pool = GraphPool()

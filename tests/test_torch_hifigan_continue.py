@@ -136,8 +136,9 @@ def test_trainer_cli_smoke_then_resume():
         assert ckpts == ["epoch_0001.pt", "epoch_0002.pt"]
         second = load_training_state(str(out / "checkpoints" / "epoch_0002.pt"))
         assert second["step"] == 4  # four 1 s voices, batch 2: two steps an epoch
+        lr = np.float32(np.float32(2e-4) * np.float32(0.9999)) * np.float32(0.9999)  # decayed in f32, as optax's
         for opt in ("g_opt", "d_opt"):
-            assert second[opt]["param_groups"][0]["lr"] == 2e-4 * 0.9999 * 0.9999
+            assert float(second[opt]["param_groups"][0]["lr"]) == float(lr)
         ttrain.main(common + ["--output_folder", tmp, "--resume", "--epochs", "3"])
         log = (out / "train_log.txt").read_text()
         resumed = re.search(r"resumed from epoch_0002\.pt \(next epoch 3, step 4, state digest (\w+)\)", log)
