@@ -6,7 +6,8 @@ Phases, any failure exits non-zero:
      five bf16/int8 sources and the f32 attention of ``attn_f32.cu``) with
      nvcc (sm_90a), one nvcc each, in parallel;
   2. hold each kernel against its plain PyTorch version at the main paths'
-     shapes (batch 8; bf16, and f32 for the f32 attention kernels) and time
+     shapes (batch 8; bf16, and f32 for the f32 attention kernels; B1, B2
+     and B3 also at the bench's batch 16, compared only) and time
      kernel, plain version and, where one exists, a single PyTorch library
      call computing the same function (for B2 and B3, which no single call
      computes, the chain of library calls as ``library_chain_ms``, and each
@@ -78,6 +79,19 @@ Phases, any failure exits non-zero:
      CLI twins (``evaluate_model``,
      ``calculate_wer``, ``spk_sim_cal``, ``extract_spk_emb``,
      ``calculate_utmos``) as children on the card against the drill's report;
+     the drill's bench stage runs ``python -m simwhisper_codec_tpu_torch.bench``
+     at its defaults (batch 16 x 30 s, 10 iterations) and its line must hold
+     the JAX bench's 16 keys, finite rates, the int8 (mixed) headline,
+     ``vs_baseline`` and MFU by their formulas, code agreement >= 0.85;
+ 7b. the bench in process (``bench_phase``): the
+     bench's programs on the resident model against ``AudioCodec(mode,
+     batch_size=16)`` for fast, fast-int8 (the mixed section) and
+     fast-int8-full: codes equal, waveforms bit for bit (else within 1e-3 of
+     max |y|), the launches of one round trip equal to serving's (launch runs
+     ``bench-fast``, ``bench-fast-int8-mixed``, ``bench-fast-int8-full``), ten
+     chained round trips that never synchronise and sum to ten times one;
+     the serving codec's stage ms at batch 8 against the bench's programs
+     on the batch already on the card (tokenize's input staging);
   8. tensor parallelism (``tp_phase``; ``parallel/mesh.py``): B1 / B5 on a
      rank's local heads (6 and 3 of 12) and the partial modes of B2, B3
      and B4 (each rank's f32 partial of its slice of I) against their plain
@@ -362,6 +376,14 @@ def kernel_phase(torch):
                              "simwhisper_codec_tpu/ops/flash_attention.py:162", "simwhisper_codec_tpu_torch/csrc/pflash.cu",
                              library=sdpa, full_lengths_ms=lambda: fa.fused_qkv_attention(qkv, full, h),
                              library_full_ms=sdpa_full))
+    # B1 at the bench's batch (phase 7b: 16 x 30 s, full lengths), compared only
+    qkv16 = randn(BENCH_BATCH, t, 3 * d)
+    qkv16[..., :d] *= hd ** -0.5
+    args = (qkv16, torch.full((BENCH_BATCH,), t, dtype=torch.int32, device=dev), h)
+    rows[-1]["bench_batch_max_abs_err"] = compare(torch, f"pflash_attention B={BENCH_BATCH}",
+                                                  fa.fused_qkv_attention(*args), fa.fused_qkv_attention_plain(*args),
+                                                  1e-2, 1.6e-2)
+    del qkv16, args
     # B5: the same work on (B, H, T, hd) views of the packed projections; its
     # bf16 weights are rounded after normalisation, so one bf16 output ulp
     # (atol 1e-2 + two half-ulps) bounds the kernel vs plain difference, as for B1
@@ -410,6 +432,17 @@ def kernel_phase(torch):
                                  "simwhisper_codec_tpu_torch/csrc/ln_ffn_int8.cu", iters=10,
                                  library_chain_ms=lambda: library_chain_int8(torch, *args)))
         rows[-1]["pass_ms"] = pass_times(torch, fc.ffn_pass_timers("int8", *args), rows[-1]["name"])
+        # the same weights over the bench's rows (phase 7b, batch 16), compared only
+        xb = randn(m * BENCH_BATCH // 8, c)
+        resb = randn(*xb.shape) if vocos else xb
+        for row, kernel, plain, weights, atol in (
+                (rows[-2], fc.fused_ln_ffn, fc.fused_ln_ffn_plain, (w1b, b1, w2b, b2), 1e-2),
+                (rows[-1], fc.fused_ln_ffn_int8, fc.fused_ln_ffn_int8_plain, (w1q, s1, b1, w2q, s2, b2), 4e-2)):
+            args = (xb, resb, ln_w, ln_b, *weights, gamma, eps)
+            row["bench_batch_max_abs_err"] = compare(torch, f"{row['name']} M={xb.shape[0]}", kernel(*args),
+                                                     plain(*args), atol, 1.6e-2)
+        del xb, resb, args
+        torch.cuda.empty_cache()
     rows.append(check_convnext_dw(torch, randn, fc))
     check_other_shapes(torch, randn, fa, fc, quantize_weight)
     return rows
@@ -1429,7 +1462,10 @@ def tools_phase(torch, cfg, codec, stage_ms: dict, weights: Path,
                 config_path: str = "config/SimWhisperCodec.yaml") -> None:
     """Phase 7: the FLOP ledger and MFU per mode, a profiler trace of the
     serving codec, ``release_check --dry_run --corpus_n 8`` as a child (with
-    phase 4's towers), the drill's codec in process, and the CLI twins."""
+    phase 4's towers; its bench stage runs the port's bench), the drill's
+    codec in process, and the CLI twins."""
+    from simwhisper_codec_tpu_torch.ops import _cuda
+
     t_phase = time.perf_counter()
     gpu = gpu_line()
     flops_ledger(torch, cfg, stage_ms, gpu)
@@ -1442,7 +1478,8 @@ def tools_phase(torch, cfg, codec, stage_ms: dict, weights: Path,
                        "--config", config_path, "--workdir", str(work), "--asr_model", str(weights / "hubert_ctc"),
                        "--utmos_checkpoint", str(weights / "utmos22_strong.ckpt"),
                        "--ecapa_checkpoint", str(weights / "wavlm_large_finetune.pth")],
-                      tmp / "drill.log", env=dict(os.environ))
+                      tmp / "drill.log", env={**{k: v for k, v in os.environ.items() if not k.startswith("BENCH_")},
+                                              "BENCH_AOT_DIR": str(_cuda.build_dir())})
         try:
             finish("release_check --dry_run", drill, tmp / "drill.log", 600)
         finally:
@@ -1456,18 +1493,202 @@ def tools_phase(torch, cfg, codec, stage_ms: dict, weights: Path,
         assert stages["corpus"]["gated_metrics"] == [], stages["corpus"]
         assert stages["parity"] == {"ok": None, "skipped": "reference repo not mounted",
                                     "wall_s": stages["parity"]["wall_s"]}, stages["parity"]
-        assert stages["bench"]["ok"] is None and "ROADMAP A.1" in stages["bench"]["skipped"], stages["bench"]
+        assert stages["bench"]["ok"] is True, stages["bench"]
+        check_bench_line(torch, cfg, stages["bench"]["metric"], "release_check's bench stage")
         report = json.loads(Path(stages["corpus"]["report"]).read_text())
         log(f"[tools] {gpu}: release_check --dry_run --corpus_n {DRILL_FILES}: ready, {drill_s:.1f} s (the "
             f".pt of {stages['load']['parameters']} parameters written first); stage wall s "
             f"{json.dumps({k: v['wall_s'] for k, v in stages.items()})}; parity skipped "
-            f"({stages['parity']['skipped']}); bench skipped ({stages['bench']['skipped']}); corpus quality "
+            f"({stages['parity']['skipped']}); bench {json.dumps(stages['bench']['metric'])}; corpus quality "
             f"{json.dumps(stages['corpus']['quality'])}; report timing {json.dumps(report['timing'])}")
         drill_codec_check(torch, cfg, config_path, work, readiness, tmp)
         torch.cuda.empty_cache()
         cli_checks(torch, work, weights, report, tmp)
     torch.cuda.empty_cache()
     log(f"[tools] phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 7b: the bench (``simwhisper_codec_tpu_torch/bench.py``) -------------
+
+BENCH_BATCH, BENCH_ITERS = 16, 10  # the bench's defaults
+# the 16 keys of the JAX bench.py's JSON line, in its order
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "headline_mode", "bf16_x_realtime", "latency_x_realtime",
+              "flops_per_audio_sec", "flops_unit", "achieved_tflops", "device", "peak_tflops_bf16", "mfu",
+              "int8_x_realtime", "int8_code_agreement_vs_bf16", "int8_mixed_x_realtime")
+BENCH_RATES = ("value", "bf16_x_realtime", "latency_x_realtime", "int8_x_realtime", "int8_mixed_x_realtime")
+# the JAX package's floor for fast-int8-full codes against fast codes
+# (tests/test_torch_informative_codes.py): a lower agreement is a finding
+BENCH_AGREEMENT_FLOOR = 0.85
+BENCH_ACC_RTOL = 1e-6  # the chained accumulator against n x one round trip's
+BENCH_WAVE_RTOL = 1e-3  # bench vs serving waveform where not bit for bit: max |d| <= RTOL * max |y|
+# launch run of the kernel line -> (bench section, the AudioCodec mode serving its programs, kernels it must launch)
+BENCH_RUNS = {
+    "bench-fast": ("fast(bf16)", "fast", ("pflash_attention", "ln_ffn_bf16")),
+    "bench-fast-int8-mixed": ("fast-int8(mixed)", "fast-int8", ("pflash_attention", "ln_ffn_bf16", "ln_ffn_int8")),
+    "bench-fast-int8-full": ("fast-int8(full)", "fast-int8-full", ("pflash_attention", "ln_ffn_int8")),
+}
+
+
+def check_bench_line(torch, cfg, rec: dict, where: str) -> None:
+    """A bench JSON line on this card: the JAX bench's keys, finite positive
+    rates, the int8 (mixed) headline, ``vs_baseline`` = value / 10, the
+    ledger's FLOPs, MFU from ``bf16_x_realtime`` over the card's peak, code
+    agreement at or above the floor."""
+    from simwhisper_codec_tpu_torch.utils.flops import codec_flops, peak_tflops
+
+    assert tuple(rec) == BENCH_KEYS, f"{where}: keys {list(rec)}"
+    bad = {k: rec[k] for k in BENCH_RATES if not (isinstance(rec[k], (int, float)) and np.isfinite(rec[k])
+                                                   and rec[k] > 0)}
+    assert not bad, f"{where}: rates {bad}"
+    assert rec["headline_mode"] == "fast-int8(mixed)" and rec["value"] == rec["int8_mixed_x_realtime"], rec
+    assert rec["vs_baseline"] == round(rec["value"] / 10, 3), rec
+    name = torch.cuda.get_device_name(0)
+    peak = peak_tflops(name)
+    assert rec["device"] == name and rec["peak_tflops_bf16"] == peak > 0, rec
+    flops = codec_flops(cfg)["total"] / (cfg.chunk_samples / cfg.input_sample_rate)
+    assert rec["flops_per_audio_sec"] == round(flops / 1e9, 2), rec
+    mfu = flops * rec["bf16_x_realtime"] / 1e12 / peak  # from the printed rate: within its rounding
+    assert abs(rec["mfu"] - mfu) <= 5e-5 + flops * 0.005 / 1e12 / peak, (rec["mfu"], mfu)
+    assert rec["int8_code_agreement_vs_bf16"] >= BENCH_AGREEMENT_FLOOR, rec
+
+
+def bench_in_process(torch, cfg, model) -> dict:
+    """The bench's programs (``bench.programs`` on the resident model, on the
+    bench's 16 x 30 s batch) against serving, per section: codes equal to
+    ``AudioCodec(mode, batch_size=16)``'s ``inference_tokenize``, the
+    waveform of ``inference_detokenize`` bit for bit (else within
+    ``BENCH_WAVE_RTOL`` of max |y|); the launches of one replayed round trip
+    equal to the graphs' recorded launches and to ``AudioCodec``'s, and
+    nonzero for each kernel the section runs; ``BENCH_ITERS`` chained round
+    trips under ``torch.cuda.set_sync_debug_mode("error")`` (a replay that
+    synchronised would raise) whose accumulator equals n x one round trip's,
+    the host's enqueue time beside the whole.  Returns launches by run and
+    the bench's programs."""
+    from simwhisper_codec_tpu_torch import bench
+    from simwhisper_codec_tpu_torch.models.codec import AudioCodec, f32_precision, quantize_for_mode
+    from simwhisper_codec_tpu_torch.ops import _cuda
+
+    quantize_for_mode(model, "fast-int8-full")
+    progs = bench.programs(model)
+    batch_inputs = bench.inputs(cfg, BENCH_BATCH, "cuda")
+    wav, lengths, frame_valid = batch_inputs
+    wav_np, lens_np = wav.cpu().numpy(), lengths.cpu().numpy()
+    rts = bench.round_trips(progs, batch_inputs)
+    zero = torch.zeros((), device="cuda")
+    launches_by_run, report = {}, {}
+    for run, (section, mode, kernels) in BENCH_RUNS.items():
+        tok, detok = (progs[name] for name in bench.SECTIONS[section])
+        rt = rts[section]
+        with torch.no_grad(), f32_precision("default"):
+            rt(zero)  # captures the section's programs not yet captured
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+            one = float(rt(zero)[0])
+            launches = dict(_cuda.launch_counts)
+            recorded = {}
+            for program in (tok, detok):
+                assert program.count == 1 and program.source == "replayed", (run, program.name, program.count)
+                (graph,) = program._programs.values()
+                for key, n in graph.launches.items():
+                    recorded[key] = recorded.get(key, 0) + n
+            t = tok(wav, lengths)
+            y = detok(t["codes"], t["codes_lengths"], frame_valid)["y"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                acc = bench.chain(rt, zero, BENCH_ITERS)
+                enqueue_s = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            chained = float(acc)
+            chain_s = time.perf_counter() - t0
+        assert abs(chained - BENCH_ITERS * one) <= BENCH_ACC_RTOL * BENCH_ITERS * abs(one), (run, chained, one)
+        codec = AudioCodec(cfg, model, batch_size=BENCH_BATCH, mode=mode, device="cuda")
+        warm = codec.inference_tokenize(wav_np, lens_np)  # captures
+        codec.inference_detokenize(warm["codes"].cpu().numpy(), warm["codes_lengths"].cpu().numpy())
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        ref = codec.inference_tokenize(wav_np, lens_np)
+        ref_y = codec.inference_detokenize(ref["codes"].cpu().numpy(), ref["codes_lengths"].cpu().numpy())["y"]
+        torch.cuda.synchronize()
+        serving = dict(_cuda.launch_counts)
+        assert launches == recorded == serving, f"{run}: launches {launches}, graphs {recorded}, serving {serving}"
+        if mode in ("fast", "fast-int8"):
+            assert launches == expected_launches(mode, cfg, 1, 1), (run, launches)
+        missing = [k for k in kernels if not any(key.split(":")[0] == k and n > 0 for key, n in launches.items())]
+        assert not missing, f"{run}: no launch of {missing}"
+        assert torch.equal(t["codes"], ref["codes"]), f"{run}: bench codes differ from serving codes"
+        bits = torch.equal(y, ref_y)
+        wave_err = float((y.float() - ref_y.float()).abs().max())
+        y_max = float(ref_y.float().abs().max())
+        assert bits or wave_err <= BENCH_WAVE_RTOL * y_max, f"{run}: waveform {wave_err:.3g} vs max |y| {y_max:.3g}"
+        report[run] = {"serving_mode": mode, "codes_equal": True, "waveform_bit_for_bit": bits,
+                       "waveform_max_abs_diff": wave_err, "launches": launches, "one_round_trip_sum": one,
+                       "chained_sum": chained, "chain_enqueue_s": enqueue_s, "chain_s": chain_s,
+                       "enqueue_share": enqueue_s / chain_s}
+        assert enqueue_s < 0.5 * chain_s, f"{run}: the chain's host enqueue took {enqueue_s:.3f} of {chain_s:.3f} s"
+        launches_by_run[run] = launches
+        del codec, warm, ref, ref_y, t, y
+        torch.cuda.empty_cache()
+    log(f"[bench] in process, batch {BENCH_BATCH} x 30 s: {json.dumps(report)}")
+    return launches_by_run, progs
+
+
+def median_synced_ms(torch, fn, reps: int = 5) -> float:
+    """Median host ms of ``fn`` between two synchronisations, after one untimed call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def staging_check(torch, cfg, codec, progs) -> dict:
+    """The serving codec (fast-int8, batch 8) against the bench's programs of
+    the same mode at batch 8, in this process: ``inference_tokenize`` from a
+    host array (padding and the host-to-device copy included) against the
+    bench's tokenize on the batch already on the card, and
+    ``inference_detokenize`` against the bench's int8 detokenize; the
+    tokenize difference is the input staging that the bench leaves out."""
+    from simwhisper_codec_tpu_torch import bench
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+
+    wav, lengths, frame_valid = bench.inputs(cfg, 8, "cuda")
+    wav_np, lens_np = wav.cpu().numpy(), lengths.cpu().numpy()
+    tok = codec.inference_tokenize(wav_np, lens_np)
+    codes_np, clen_np = tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy()
+    out = {"serving_tokenize_ms": median_synced_ms(torch, lambda: codec.inference_tokenize(wav_np, lens_np)),
+           "serving_detokenize_ms": median_synced_ms(torch, lambda: codec.inference_detokenize(codes_np, clen_np))}
+    with torch.no_grad(), f32_precision("default"):
+        t = progs["tok"](wav, lengths)
+        out["bench_tokenize_ms"] = median_synced_ms(torch, lambda: progs["tok"](wav, lengths))
+        out["bench_detokenize_ms"] = median_synced_ms(
+            torch, lambda: progs["detok8"](t["codes"], t["codes_lengths"], frame_valid))
+    assert np.array_equal(t["codes"].cpu().numpy(), codes_np), "bench codes differ from serving codes at batch 8"
+    out["tokenize_staging_ms"] = out["serving_tokenize_ms"] - out["bench_tokenize_ms"]
+    for who in ("serving", "bench"):
+        out[f"{who}_batch8_x_real_time"] = 240.0 / ((out[f"{who}_tokenize_ms"] + out[f"{who}_detokenize_ms"]) / 1e3)
+    log(f"[bench] fast-int8 at batch 8 x 30 s, host clock around synchronised calls, median of 5: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def bench_phase(torch, cfg, model, serving_codec) -> dict:
+    """Phase 7b: the bench's programs in process against serving
+    (``bench_in_process``) and the serving codec's input staging
+    (``staging_check``); the bench itself ran as the drill's bench stage
+    (phase 7).  Returns launches by run."""
+    t0 = time.perf_counter()
+    launches, progs = bench_in_process(torch, cfg, model)
+    staging_check(torch, cfg, serving_codec, progs)
+    del progs
+    torch.cuda.empty_cache()
+    log(f"[bench] phase: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # -- phase 5: training (each run a subprocess: this process initialised cuBLAS
@@ -2902,6 +3123,7 @@ def main() -> int:
         eval_phase(torch, cfg, serving_codec, Path(towers))
         serve_and_cli_phase(torch, cfg, model)
         tools_phase(torch, cfg, serving_codec, stage_ms, Path(towers))
+    launches.update(bench_phase(torch, cfg, model, serving_codec))
     del model, serving_codec
     torch.cuda.empty_cache()
     training_phase(torch)

@@ -16,3 +16,11 @@ unless the caller passes ``device="cpu"``.
 __version__ = "0.1.0"
 
 from simwhisper_codec_tpu_torch.config import CodecConfig, load_config  # noqa: F401
+
+
+def load_codec(config_path: str, ckpt_path: str, **kwargs):
+    """An ``AudioCodec`` from a YAML config and a reference ``.pt`` state dict
+    (``AudioCodec.load_from_checkpoint``; ``kwargs`` go to ``AudioCodec``)."""
+    from simwhisper_codec_tpu_torch.models.codec import AudioCodec
+
+    return AudioCodec.load_from_checkpoint(config_path, ckpt_path, **kwargs)

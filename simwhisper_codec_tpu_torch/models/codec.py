@@ -217,6 +217,28 @@ def mode_programs(mode: str, attn_impl: Optional[str] = None, vocos_impl: Option
     return tok, detok
 
 
+def quantize_for_mode(model: "SimWhisperCodec", mode: str) -> None:
+    """Add the int8 weights that ``mode`` runs to ``model`` (idempotent):
+    the decoder stack and the Vocos in ``fast-int8``, the encoder stack too
+    in ``fast-int8-full``; nothing in the other modes."""
+    if mode in ("fast-int8", "fast-int8-full"):
+        quantize_stacked_ffn(model.acoustic_decoder.layers)
+        if mode == "fast-int8-full":
+            quantize_stacked_ffn(model.acoustic_encoder.layers)
+        quantize_stacked_convnext(model.vocos.backbone.convnext)
+
+
+def serving_program(model: "SimWhisperCodec", mode: str, direction: str, pool: aot.GraphPool,
+                    attn_impl: Optional[str] = None, vocos_impl: Optional[str] = None,
+                    capture: bool = True) -> aot.CapturedProgram:
+    """``mode``'s ``tokenize`` or ``detokenize`` (``direction``) on ``model``
+    as a ``CapturedProgram`` on ``pool``: the program ``AudioCodec`` serves
+    and the bench times.  The int8 modes need ``quantize_for_mode`` first."""
+    tok_kw, detok_kw = mode_programs(mode, attn_impl, vocos_impl)
+    fn, kw = {"tokenize": (tokenize, tok_kw), "detokenize": (detokenize, detok_kw)}[direction]
+    return aot.CapturedProgram(functools.partial(fn, model, **kw), direction, pool, capture=capture)
+
+
 @contextlib.contextmanager
 def f32_precision(precision: str = "highest"):
     """TF32 for float32 matmuls and cuDNN convolutions inside the block:
@@ -278,16 +300,11 @@ class AudioCodec:
         self.wire = wire
         self.precision = precision if mode == "parity" else "default"
         self.device = resolve_device(device)
-        self._tok_kw, self._detok_kw = mode_programs(mode, attn_impl, vocos_impl)
         # transfer granularity of the int16 encode wire: the host pads only to
         # the next bucket, the device pads to the chunk
         self._wire_bucket = max(1, cfg.chunk_samples // 10)
         self.model = model.to(self.device).eval()
-        if mode in ("fast-int8", "fast-int8-full"):
-            quantize_stacked_ffn(self.model.acoustic_decoder.layers)
-            if mode == "fast-int8-full":
-                quantize_stacked_ffn(self.model.acoustic_encoder.layers)
-            quantize_stacked_convnext(self.model.vocos.backbone.convnext)
+        quantize_for_mode(self.model, mode)
         self.batch_size = batch_size
         self._dist = dist_ctx.current() if data_parallel else dist_ctx.DistContext()
         self.input_sample_rate = cfg.input_sample_rate
@@ -303,10 +320,9 @@ class AudioCodec:
         if sharded:
             logger.info("the model is sharded over a model group: tokenize and detokenize run eagerly")
         pool = aot.GraphPool()
-        self._tokenize = aot.CapturedProgram(functools.partial(tokenize, self.model, **self._tok_kw), "tokenize",
-                                             pool, capture=not sharded)
-        self._detokenize = aot.CapturedProgram(functools.partial(detokenize, self.model, **self._detok_kw),
-                                               "detokenize", pool, capture=not sharded)
+        self._tokenize, self._detokenize = (
+            serving_program(self.model, mode, direction, pool, attn_impl, vocos_impl, capture=not sharded)
+            for direction in ("tokenize", "detokenize"))
 
     @property
     def trace_counts(self) -> Dict[str, int]:

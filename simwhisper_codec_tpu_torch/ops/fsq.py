@@ -104,6 +104,11 @@ def group_fsq_forward(
     return codes, indices.permute(2, 0, 1).contiguous()
 
 
+def group_fsq_encode(consts: FSQConstants, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Latent (B, T, D) -> indices (G, B, T) int32, zero beyond lengths (quantizer.py:292-304)."""
+    return group_fsq_forward(consts, x, lengths)[1]
+
+
 def group_fsq_decode(
     consts: FSQConstants, indices: torch.Tensor, lengths: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -112,6 +117,11 @@ def group_fsq_decode(
     if lengths is not None:
         codes = codes * length_mask(lengths, codes.shape[1])[..., None].to(codes.dtype)
     return codes
+
+
+def codebook_size(cfg: QuantizerConfig) -> int:
+    """Distinct code frames: the group codebook size to the number of groups."""
+    return cfg.codebook_size_per_group ** cfg.num_groups
 
 
 def bits_per_frame(cfg: QuantizerConfig) -> float:

@@ -111,6 +111,27 @@ def log_mel(consts: MelConstants, wav: torch.Tensor) -> torch.Tensor:
     return (log_spec + 4.0) / 4.0
 
 
+def log_mel_dithered(consts: MelConstants, wav: torch.Tensor, generator: torch.Generator,
+                     dither: float) -> torch.Tensor:
+    """``log_mel`` of ``wav + dither * noise``, the noise N(0, 1) in ``wav``'s
+    dtype drawn from ``generator`` (on ``wav``'s device), as the reference
+    dithers (feature_extractor.py:94-95); ``dither = 0`` draws nothing."""
+    if dither != 0.0:
+        wav = wav + dither * torch.randn(wav.shape, generator=generator, dtype=wav.dtype, device=wav.device)
+    return log_mel(consts, wav)
+
+
+def zero_mean_unit_var_norm(wav: torch.Tensor, lengths: torch.Tensor, padding_value: float = 0.0) -> torch.Tensor:
+    """Per-row zero mean and unit variance over the first ``lengths`` samples,
+    the rest set to ``padding_value`` (feature_extractor.py:114-134)."""
+    mask = (torch.arange(wav.shape[-1], device=wav.device)[None, :] < lengths[:, None]).to(wav.dtype)
+    denom = torch.clamp(lengths.to(wav.dtype), min=1.0)[:, None]
+    mean = (wav * mask).sum(-1, keepdim=True) / denom
+    var = ((wav - mean).square() * mask).sum(-1, keepdim=True) / denom
+    normed = (wav - mean) / torch.sqrt(var + 1e-7)
+    return torch.where(mask > 0, normed, torch.full_like(normed, padding_value))
+
+
 def mel_lengths(sample_lengths: torch.Tensor, hop: int, max_frames: int) -> torch.Tensor:
     """Valid mel frames per sample: ceil(len / hop), capped at max_frames."""
     return torch.clamp((sample_lengths + hop - 1) // hop, max=max_frames)

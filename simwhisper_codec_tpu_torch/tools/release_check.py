@@ -11,7 +11,9 @@ the codec checkpoint (+ optional tower checkpoints), this runs:
                codes across the chunk loop (needs the upstream reference
                checkout, named by ``--reference_root``; skipped without it;
                the load surface certified: audiocodec/model.py:375-396)
-  3. bench   — recorded as skipped: the port has no bench yet (ROADMAP A.1)
+  3. bench   — ``python -m simwhisper_codec_tpu_torch.bench --device <device>``
+               (the codec's round-trip throughput at ``CodecConfig()``,
+               random weights); its last JSON line is the stage's ``metric``
   4. corpus  — ``python -m simwhisper_codec_tpu_torch.eval_corpus
                --full-report`` over a synthetic corpus with the weights and
                the metric towers (no gated metric), in its default mode
@@ -42,7 +44,6 @@ from pathlib import Path
 import numpy as np
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
-BENCH_SKIP = "the port has no bench yet (ROADMAP A.1: a benchmark issue adds it and its BENCHMARK.json cell)"
 # the report's numbers that the readiness JSON carries
 QUALITY_KEYS = ("stoi", "pesq_wb", "pesq_nb", "si_snr", "snr", "lsd", "mcd", "wer_rec", "utmos_rec",
                 "speaker_sim", "bitrate_bps")
@@ -153,8 +154,19 @@ def stage_parity(args) -> dict:
             "code_mismatches": mismatch, "max_wav_abs_err": round(wav_err, 6)}
 
 
+def bench_command(device: str) -> list:
+    return [sys.executable, "-m", "simwhisper_codec_tpu_torch.bench", "--device", device]
+
+
 def stage_bench(args) -> dict:
-    return {"ok": None, "skipped": BENCH_SKIP}
+    rc, log = _run(bench_command(args.device))
+    line = next((ln for ln in reversed(log.splitlines()) if ln.strip().startswith("{")), None)
+    try:
+        metric = json.loads(line) if line else None
+    except json.JSONDecodeError:
+        metric = None
+    return {"ok": rc == 0 and metric is not None, "metric": metric,
+            **({} if rc == 0 else {"log_tail": log[-800:]})}
 
 
 def stage_corpus(args, work: Path) -> dict:
@@ -220,7 +232,7 @@ def main(argv=None) -> None:
     ap.add_argument("--workdir", default=str(Path(tempfile.gettempdir()) / "release_check"))
     ap.add_argument("--corpus_n", type=int, default=12)
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the parity and corpus stages (cuda or cpu)")
+                    help="torch device of the parity, bench and corpus stages (cuda or cpu)")
     ap.add_argument("--skip", default="",
                     help="comma list from {load,parity,bench,corpus}")
     ap.add_argument("--dry_run", action="store_true",

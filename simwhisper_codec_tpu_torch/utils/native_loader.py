@@ -10,7 +10,9 @@ hash of the source as ``ops/_cuda.py`` names the kernels, and exposes:
    WAV and FLAC decoded by a native thread pool, with the sinc_interp_hann
    polyphase resampler, to mono float32; other formats (MP3), and files the
    library cannot read, take the per-file Python path of
-   ``utils/audio_io.py``.
+   ``utils/audio_io.py``;
+ - ``load_audio`` / ``save_audio``: one file, decoded by the library (WAV,
+   FLAC) or written by it as 16-bit PCM WAV, else by ``utils/audio_io.py``.
 
 Where no C++ compiler is found, every file takes the Python path (host
 decoding either way; the log says once which loader is in use).
@@ -31,6 +33,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from simwhisper_codec_tpu_torch.utils.audio_io import load_audio as py_load
+from simwhisper_codec_tpu_torch.utils.audio_io import save_audio as py_save
 
 logger = logging.getLogger(__name__)
 
@@ -62,12 +65,16 @@ def _build() -> Optional[ctypes.CDLL]:
             return None
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
+    lib.audioloader_load.restype = ctypes.c_long
+    lib.audioloader_load.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.POINTER(ctypes.c_float))]
     lib.audioloader_load_batch.restype = ctypes.c_long
     lib.audioloader_load_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_long, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.POINTER(ctypes.c_float)), ctypes.POINTER(ctypes.c_long),
     ]
     lib.audioloader_free.argtypes = [ctypes.POINTER(ctypes.c_float)]
+    lib.audioloader_save_wav.restype = ctypes.c_int
+    lib.audioloader_save_wav.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_long, ctypes.c_int]
     logger.info("native audio loader in use: %s", out)
     return lib
 
@@ -88,6 +95,37 @@ def available() -> bool:
 def _count(path: str) -> None:
     with _lock:
         loaded_files[path] += 1
+
+
+def load_audio(path: str, target_sample_rate: int = 16000) -> np.ndarray:
+    """One file -> mono float32 at the target rate: WAV / FLAC through the
+    library, anything else (or what it cannot read) through ``utils/audio_io.py``."""
+    lib = get_lib()
+    if lib is not None and str(path).lower().endswith(NATIVE_EXTENSIONS):
+        out = ctypes.POINTER(ctypes.c_float)()
+        n = lib.audioloader_load(str(path).encode(), target_sample_rate, ctypes.byref(out))
+        if n >= 0:
+            wav = np.ctypeslib.as_array(out, shape=(n,)).copy()
+            lib.audioloader_free(out)
+            _count("native")
+            return wav
+    wav = py_load(path, target_sample_rate)
+    _count("python")
+    return wav
+
+
+def save_audio(path: str, wav: np.ndarray, sample_rate: int = 16000) -> None:
+    """A 16-bit PCM mono WAV: float samples quantised by the library (x * 32768,
+    clipped, truncated: ``to_pcm16``'s formula), else by ``utils/audio_io.py``,
+    which also writes int16 input as it is."""
+    lib = get_lib()
+    wav = np.asarray(wav)
+    if lib is not None and wav.dtype != np.int16:
+        samples = np.ascontiguousarray(wav, np.float32).reshape(-1)
+        ptr = samples.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+        if lib.audioloader_save_wav(str(path).encode(), ptr, len(samples), sample_rate) == 0:
+            return
+    py_save(path, wav, sample_rate)
 
 
 def load_audio_batch(paths: List[str], target_sample_rate: int = 16000, num_threads: int = 0,

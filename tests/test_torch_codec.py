@@ -216,7 +216,7 @@ def test_parity_kernel_attention_codec_matches_jax(pair, utterances, attn_impl):
     params, model = pair
     jc = jcodec.AudioCodec(TINY, params, batch_size=2, mode="parity", attn_impl=attn_impl)
     tc = tcodec.AudioCodec(TINY, model, batch_size=2, mode="parity", device="cpu", attn_impl=attn_impl)
-    assert tc._tok_kw["attn_impl"] == tc._detok_kw["attn_impl"] == attn_impl
+    assert tc._tokenize.fn.keywords["attn_impl"] == tc._detokenize.fn.keywords["attn_impl"] == attn_impl
     wavs = [utterances[0], utterances[1][: 23 * SR]]  # one chunk, and two
     jcodes = jc.encode(wavs)["codes_list"]
     tcodes = tc.encode(wavs)["codes_list"]

@@ -7,9 +7,13 @@ against the JAX package's tools, on the CPU, through ``main()`` in process:
    ``pesq_calibrate``: the same JSON on a 1.5 s carrier (the full run is
    ``slow``); neither writes over the JAX package's ``docs/PESQ_*.json``;
  - ``release_check --dry_run`` at TINY with tiny towers: ready, with the
-   load stage's checksum report against the JAX report of the same ``.pt``
-   and the parity stage's skip equal to the JAX stage's without a reference
-   checkout; exit 1 when no stage that ran was ready.
+   load stage's checksum report against the JAX report of the same ``.pt``,
+   the parity stage's skip equal to the JAX stage's without a reference
+   checkout, and the bench stage run on a stand-in child that prints a
+   bench line (the real bench runs at full width: on the card only); exit 1
+   when no stage that ran was ready;
+ - the bench stage's command, and its parsing of the child's output against
+   the JAX stage's on the same outputs.
 """
 
 import argparse
@@ -108,8 +112,27 @@ def test_pesq_twins_refuse_the_jax_records(tool, capsys):
 # -- release drill ------------------------------------------------------------------
 
 
+# a bench line as the bench's child prints it last (its 16 keys; values of a CPU run)
+BENCH_LINE = {"metric": "codec_round_trip_throughput", "value": 49.99, "unit": "x_realtime_per_chip",
+              "vs_baseline": 4.999, "headline_mode": "fast-int8(mixed)", "bf16_x_realtime": 57.06,
+              "latency_x_realtime": 57.18, "flops_per_audio_sec": 0.24, "flops_unit": "GFLOP_per_audio_sec",
+              "achieved_tflops": 0.01, "device": "cpu", "peak_tflops_bf16": 100.0, "mfu": 0.0001,
+              "int8_x_realtime": 60.64, "int8_code_agreement_vs_bf16": 1.0, "int8_mixed_x_realtime": 49.99}
+
+
+def stub_bench(devices: list, rc: int = 0, line=BENCH_LINE):
+    """A ``bench_command`` whose child prints a progress line, then ``line``, and exits ``rc``."""
+    def command(device):
+        devices.append(device)
+        return [sys.executable, "-c",
+                f"import sys; print('bench: stand-in'); print({json.dumps(json.dumps(line))}); sys.exit({rc})"]
+    return command
+
+
 def test_release_check_dry_run(data, monkeypatch, capsys):
     monkeypatch.setenv("OMP_NUM_THREADS", str(TRAIN_THREADS))  # the corpus stage's child
+    bench_devices = []
+    monkeypatch.setattr(release_check, "bench_command", stub_bench(bench_devices))
     cfg = data["tmp"] / "tiny.yaml"
     params = dict(GENERATOR_PARAMS, vocos=dict(GENERATOR_PARAMS["vocos"], num_layers=TINY.vocos.num_layers))
     cfg.write_text(yaml.safe_dump({"generator_params": params}))
@@ -130,7 +153,9 @@ def test_release_check_dry_run(data, monkeypatch, capsys):
     jrc = jax_tool("release_check.py")
     monkeypatch.setattr(jrc, "REFERENCE", data["tmp"] / "no_reference")
     assert {k: v for k, v in stages["parity"].items() if k != "wall_s"} == jrc.stage_parity(None)
-    assert stages["bench"]["ok"] is None and "ROADMAP A.1" in stages["bench"]["skipped"]
+    # bench: the stand-in child ran on the stage's device; its last line is the metric
+    assert bench_devices == ["cpu"]
+    assert {k: v for k, v in stages["bench"].items() if k != "wall_s"} == {"ok": True, "metric": BENCH_LINE}
 
     # load: the checksum report against the JAX report of the same .pt (XOR
     # and element counts are independent of layout and layer stacking)
@@ -162,6 +187,29 @@ def test_release_check_dry_run(data, monkeypatch, capsys):
                             "--workdir", str(work / "none"), "--skip", "load,bench,corpus", "--device", "cpu"])
     assert exit_.value.code == 1
     assert json.loads((work / "none" / "READINESS.json").read_text())["ready"] is False
+
+
+@pytest.mark.parametrize("rc,log,ok", [
+    (0, "bench: fast(bf16): 57.06 x real time pipelined\n" + json.dumps(BENCH_LINE) + "\n", True),
+    (0, json.dumps(BENCH_LINE) + "\nwarning: after the line\n", True),
+    (1, "bench: no line\nTraceback (most recent call last):\nRuntimeError: a kernel failed\n", False),
+    (3, "bench: no CUDA device (torch.cuda.is_available() is false); cannot produce numbers\n", False),
+    (0, "{not json\n", False),
+])
+def test_release_check_bench_stage_parses_as_jax(monkeypatch, rc, log, ok):
+    """The bench stage runs the port's bench on the stage's device and
+    reads the child's output as the JAX stage reads ``bench.py``'s."""
+    assert release_check.bench_command("cpu") == [sys.executable, "-m", "simwhisper_codec_tpu_torch.bench",
+                                                  "--device", "cpu"]
+    jrc = jax_tool("release_check.py")
+    ran = []
+    for mod in (release_check, jrc):
+        monkeypatch.setattr(mod, "_run", lambda cmd, timeout=7200: ran.append(cmd) or (rc, log))
+    got = release_check.stage_bench(argparse.Namespace(device="cuda"))
+    assert got == jrc.stage_bench(argparse.Namespace(device="cuda"))
+    assert ran[0] == release_check.bench_command("cuda") and ran[1] == [sys.executable, "bench.py"]
+    assert got["ok"] is ok and got["metric"] == (BENCH_LINE if ok else None)
+    assert ("log_tail" in got) is (rc != 0)
 
 
 def test_release_check_reference_root_is_explicit(tmp_path, monkeypatch):
