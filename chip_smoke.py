@@ -11,7 +11,10 @@ Phases, any failure exits non-zero:
      kernel, plain version and, where one exists, a single PyTorch library
      call computing the same function (for B2 and B3, which no single call
      computes, the chain of library calls as ``library_chain_ms``, and each
-     pass of B2, B3 and B4 alone as ``pass_ms``);
+     pass of B2, B3 and B4 alone as ``pass_ms``); then ``ffn_impl="int8"``,
+     the JAX package's XLA int8 FFN (a library path, ``torch._int_mm``): its
+     s32 products against the plain version's (equal) and the sublayer
+     timed beside B2 and B3 at 768 x 3072 over 24000 rows;
   3. run full-width random weights (config/SimWhisperCodec.yaml, fixed seed)
      through ``AudioCodec.encode`` + ``decode`` in parity, fast, fast-int8,
      fast with the flash attention core and the whole-block Vocos kernel
@@ -22,7 +25,10 @@ Phases, any failure exits non-zero:
      their run (under ``utils.aot.eager()``); each run's tokenize and
      detokenize are CUDA graphs captured at its warm-up call and replayed
      after (``graph_check``: one program a direction, codes and waveforms
-     against ``eager()``, a held result unchanged by the next replay, the
+     against ``eager()`` (parity's bit for bit: its programs pin cuDNN's
+     deterministic algorithms; ``determinism_check``: two eager parity round
+     trips bit for bit, and the stage ms pinned against free), a held result
+     unchanged by the next replay, the
      hand kernels traced in a replay as ``expected_launches`` counts them,
      graph and eager ms with the idle share, peak memory); the fast modes
      once more at "highest"
@@ -36,7 +42,10 @@ Phases, any failure exits non-zero:
      synthetic FLAC utterances through the serving codec (host metrics, code
      statistics, the HuBERT-large CTC, UTMOS and WavLM-large + ECAPA towers,
      each tower's ms per audio second and peak memory), each tower on the
-     card against the CPU and bucket-padded against exact length, the
+     card against the CPU and bucket-padded against exact length, each
+     tower's CUDA graph (``utils/aot.py``, one a bucket) against
+     ``aot.eager()`` with its ms per audio second captured and eager
+     (``tower_program_check``), the
      trainer's held-out probe; start the port's HTTP server twice
      (fast-int8; float32 and pcm16 wire) and send them requests, while the
      batch CLI (``python -m simwhisper_codec_tpu_torch.inference``) turns a
@@ -60,7 +69,9 @@ Phases, any failure exits non-zero:
   6. the variant modules and the HiFi-GAN continuation recipe
      (``variants_phase``): the encoder's hidden states at full width with the
      f32 B1 / B5 kernels against dense attention (launch counts read around
-     each run), the semantic encoder, the Vocos variants, the STFT and the
+     each run) and each as a CUDA graph against eager, the recipe's two
+     extractors' programs against eager (``extractor_program_check``), the
+     semantic encoder, the Vocos variants, the STFT and the
      MDCT / IMDCT card against CPU; then, in child processes, the recipe at
      full width (data prep, Whisper-encoder features, 3 epochs of
      ``HifiGanConfig(768, 512)`` at batch 32 x 8960, the step captured at
@@ -90,6 +101,10 @@ Phases, any failure exits non-zero:
      max |y|), the launches of one round trip equal to serving's (launch runs
      ``bench-fast``, ``bench-fast-int8-mixed``, ``bench-fast-int8-full``), ten
      chained round trips that never synchronise and sum to ten times one;
+     the bf16 section again with ``SIMWHISPER_FUSED_VOCOS=dw`` against
+     ``AudioCodec(mode="fast", vocos_impl="fused-dw")`` (launch run
+     ``bench-fast-dw``: B4 on every Vocos block) and ``bf16_x_realtime``
+     with each Vocos;
      the serving codec's stage ms at batch 8 against the bench's programs
      on the batch already on the card (tokenize's input staging);
   8. tensor parallelism (``tp_phase``; ``parallel/mesh.py``): B1 / B5 on a
@@ -107,7 +122,10 @@ Phases, any failure exits non-zero:
      each waveform (decoded from one process's codes) within the same
      bounds; then the training dry run's production geometry
      (``parallel/dryrun.py``) on that group.
-     ``--tp_gpus N`` runs the TP part over N cards (NCCL);
+     ``--tp_gpus N`` runs the TP part over N cards (NCCL; at 4: 1 x 2,
+     1 x 4 and 2 x 2), where each rank's programs are also captured as CUDA
+     graphs, as ``AudioCodec`` captures a model sharded over NCCL, and held
+     against its eager run (``TP_CAPTURE_RUNS``);
   9. print the kernel table, the GPU's name and power limit, and the result.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -592,6 +610,63 @@ def check_other_shapes(torch, randn, fa, fc, quantize_weight):
                       fc.fused_ln_ffn_int8_plain(*args), 4e-2)
 
 
+def int8_ffn_check(torch) -> dict:
+    """``ffn_impl="int8"``, the JAX package's XLA int8 FFN (a library path:
+    ``ops/quant.py::int8_dynamic_matmul`` on ``torch._int_mm``, cuBLASLt; no
+    hand kernel, so no row of the kernel table's JSON line): its two s32
+    products at the transformer's shape (768 x 3072 over the bench's 24000
+    rows) against the plain version's, which must be equal, and the whole
+    FFN sublayer (``TransformerLayer.int8_ffn`` + the residual) timed beside
+    B2 and B3 on the same rows, with the plain product timed in its place."""
+    from simwhisper_codec_tpu_torch.config import EncoderConfig
+    from simwhisper_codec_tpu_torch.models.transformer import TransformerLayer, init_transformer
+    from simwhisper_codec_tpu_torch.ops import fused_convnext as fc
+    from simwhisper_codec_tpu_torch.ops import quant
+
+    enc = EncoderConfig()
+    c, inter, m = enc.d_model, enc.encoder_ffn_dim, BENCH_BATCH * 1500  # the bench's encoder rows
+    layer = TransformerLayer(c, enc.encoder_attention_heads, inter)
+    init_transformer(layer, torch.Generator().manual_seed(2))
+    layer = layer.cuda()
+    quant.quantize_stacked_ffn([layer])
+    x = (torch.randn(m, c, generator=torch.Generator().manual_seed(3))).to(torch.bfloat16).cuda()
+    ln = layer.final_layer_norm
+    xq, _ = quant.quantize_rows(x)
+    hq = torch.randint(-127, 128, (m, inter), generator=torch.Generator().manual_seed(4), dtype=torch.int8).cuda()
+    products = {"fc1": (xq, layer.fc1_q), "fc2": (hq, layer.fc2_q)}
+    equal = {k: bool(torch.equal(quant.int8_product(a, w), quant.int8_product_plain(a, w)))
+             for k, (a, w) in products.items()}
+
+    def sublayer():
+        return x + layer.int8_ffn(x).to(x.dtype)
+
+    out = sublayer()
+    saved = quant.int8_product
+    quant.int8_product = quant.int8_product_plain  # the plain version: the float64 products on the card
+    try:
+        plain = sublayer()
+        plain_ms = time_ms(torch, sublayer, 3)
+    finally:
+        quant.int8_product = saved
+    ms = time_ms(torch, sublayer, 10)
+    vecs = (ln.weight.to(torch.bfloat16), ln.bias.to(torch.bfloat16))
+    b2_args = (x, x, *vecs, layer.fc1.weight.to(torch.bfloat16), layer.fc1.bias.to(torch.bfloat16),
+               layer.fc2.weight.to(torch.bfloat16), layer.fc2.bias.to(torch.bfloat16), None, 1e-5)
+    b3_args = (x, x, *vecs, layer.fc1_q, layer.fc1_s, layer.fc1.bias.to(torch.bfloat16), layer.fc2_q, layer.fc2_s,
+               layer.fc2.bias.to(torch.bfloat16), None, 1e-5)
+    b_ms, b_by = bound_ms(4.0 * m * c * inter, H100_INT8_OPS, 2 * m * c * 2 + 2 * c * inter + (inter + c) * 4)
+    row = {"name": f"int8_dynamic_matmul ffn:{c}x{inter}", "route": "library (torch._int_mm, cuBLASLt)",
+           "source": "simwhisper_codec_tpu_torch/ops/quant.py", "replaces": "simwhisper_codec_tpu/ops/quant.py:39",
+           "rows": m, "s32_products_equal": equal, "max_abs_err": float((out.float() - plain.float()).abs().max()),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "b2_ms": time_ms(torch, lambda: fc.fused_ln_ffn(*b2_args), 10),
+           "b3_ms": time_ms(torch, lambda: fc.fused_ln_ffn_int8(*b3_args), 10)}
+    log(f"[kernel] {gpu_line()}: {json.dumps(row)}")
+    assert all(equal.values()), f"torch._int_mm's s32 products differ from the plain version's: {equal}"
+    assert bool(torch.isfinite(out).all()) and row["max_abs_err"] == 0.0, row
+    return row
+
+
 def expected_launches(label: str, cfg, n_tok: int, n_detok: int) -> dict:
     enc, dec, voc = cfg.acoustic_encoder, cfg.acoustic_decoder, cfg.vocos
     tshape = f"{enc.d_model}x{enc.encoder_ffn_dim}"
@@ -601,9 +676,9 @@ def expected_launches(label: str, cfg, n_tok: int, n_detok: int) -> dict:
     attn = n_tok * enc.encoder_layers + n_detok * dec.decoder_layers
     if label in ("parity-pflash", "parity-flash"):
         return {("pflash_attention_f32" if label == "parity-pflash" else "flash_attention_f32"): attn}
-    if label == "fast-flash-dw":
-        return {"flash_attention": attn, f"ln_ffn_bf16:{tshape}": attn,
-                f"convnext_dw:{vshape}": n_detok * voc.num_layers}
+    if label in ("fast-flash-dw", "fast-dw"):  # B5 or B1, B2 in the transformers, B4 in the Vocos
+        return {"flash_attention" if label == "fast-flash-dw" else "pflash_attention": attn,
+                f"ln_ffn_bf16:{tshape}": attn, f"convnext_dw:{vshape}": n_detok * voc.num_layers}
     want = {"pflash_attention": attn}
     if label == "fast":
         want[f"ln_ffn_bf16:{tshape}"] = attn
@@ -660,6 +735,8 @@ def codec_phase(torch, cfg, model):
         results[label] = {"round_trip_x_real_time": sum(UTTERANCE_SECONDS) / wall, "wall_s": wall,
                           "batch8_x_real_time": batch_rt, **stage, "launches": launches,
                           "graphs": graph_check(torch, cfg, codec, label, batch, utts, enc, dec)}
+        if label == "parity":
+            results[label]["determinism"] = determinism_check(torch, codec, batch)
         if label in F32_ATTENTION:
             with aot.eager():  # it records the wrapper's Python calls, which a replay never makes
                 results[label]["attention_max_abs_err"] = codec_attention_check(torch, codec, F32_ATTENTION[label],
@@ -761,6 +838,8 @@ def graph_check(torch, cfg, codec, label, batch, utts, enc, dec) -> dict:
     y_max = max(float(np.abs(b).max()) for b in dec_eager)
     rtol = GRAPH_WAVE_RTOL["parity" if label.startswith("parity") else "bf16"]
     assert bits or wave_err <= rtol * y_max, f"{label}: graph vs eager waveform {wave_err:.3g} > {rtol} x {y_max:.3g}"
+    # parity pins cuDNN's deterministic algorithms (models/codec.py::mode_deterministic)
+    assert bits or not label.startswith("parity"), f"{label}: graph vs eager waveform not bit for bit ({wave_err:.3g})"
     # a held result survives a second, different call of each program
     lens = np.full(len(batch), batch.shape[1])
     tok = codec.inference_tokenize(batch, lens)
@@ -862,6 +941,45 @@ def precision_check(torch, codec, label, batch, utts, codes_default) -> None:
     log(f"[precision] {label}: " + "; ".join(
         f"{s} tokenize {m['tokenize_ms']:.2f} ms, detokenize {m['detokenize_ms']:.2f} ms" for s, m in mean.items())
         + f"; code agreement default vs highest {share_equal(codes_default, codes):.4f}")
+
+
+def determinism_check(torch, codec, batch) -> dict:
+    """Parity's programs pin cuDNN's deterministic algorithms: two eager
+    round trips of the 8 x 30 s batch give the same codes and waveforms bit
+    for bit; the same two with the caller's flag instead (cuDNN free to pick
+    its algorithms, as parity ran before) are reported; tokenize and
+    detokenize ms through the graphs with each setting, in turns (pinned,
+    free, free, pinned; each the mean of its two)."""
+    from simwhisper_codec_tpu_torch.utils import aot
+
+    lens = np.full(len(batch), batch.shape[1])
+
+    def round_trip():
+        tok = codec.inference_tokenize(batch, lens)
+        y = codec.inference_detokenize(tok["codes"].cpu().numpy(), tok["codes_lengths"].cpu().numpy())["y"]
+        return tok["codes"].cpu().numpy(), y.cpu().numpy()
+
+    pinned = codec.deterministic
+    assert pinned is True, codec.deterministic
+    out, times = {}, {"pinned": [], "free": []}
+    try:
+        for setting, flag in (("pinned", True), ("free", None)):
+            codec.deterministic = flag
+            with aot.eager():
+                (c1, y1), (c2, y2) = round_trip(), round_trip()
+            out[setting] = {"codes_equal": bool(np.array_equal(c1, c2)), "waveform_bit_for_bit": bool(
+                np.array_equal(y1, y2)), "waveform_max_abs_diff": float(np.abs(y1.astype(np.float64) - y2).max())}
+        for setting in ("pinned", "free", "free", "pinned"):
+            codec.deterministic = True if setting == "pinned" else None
+            times[setting].append(stage_times(torch, codec, batch))
+    finally:
+        codec.deterministic = pinned
+    for setting, ts in times.items():
+        out[setting].update({k: float(np.mean([t[k] for t in ts])) for k in ts[0]})
+    log(f"[determinism] {gpu_line()}: parity, two eager round trips of 8 x 30 s and stage ms through the graphs "
+        f"(host clock, synchronised), cuDNN deterministic pinned vs the caller's flag (False): {json.dumps(out)}")
+    assert out["pinned"]["codes_equal"] and out["pinned"]["waveform_bit_for_bit"], out["pinned"]
+    return out
 
 
 def streaming_check(torch, cfg, codec):
@@ -1116,6 +1234,104 @@ def padded_vs_exact(torch, towers: dict, wav: np.ndarray) -> dict:
             "embedding": tower_err(spk.embed(wav), exact_emb)}
 
 
+class ProgramArgs:
+    """Stands in for a tower's (or an extractor's) ``program`` attribute:
+    keeps the inputs of the last call, then calls the program."""
+
+    def __init__(self, program):
+        self.program, self.args = program, None
+
+    def __call__(self, *args):
+        self.args = args
+        return self.program(*args)
+
+
+def host_array(r) -> np.ndarray:
+    return r.cpu().numpy() if hasattr(r, "cpu") else np.asarray(r)
+
+
+def program_check(torch, name: str, owner, call, utts, precision: str = "highest", sr: int = 16000) -> dict:
+    """``owner.program`` (a ``utils/aot.py`` program of a tower or an
+    extractor) on the card through ``call``, its wrapper's method, on
+    utterances of one new signature (bucket): the first call captures one
+    new signature, the second replays, held against the same call under
+    ``aot.eager()`` (max |d| / max(max |eager|, 1) <= TOWER_TOL; bit for bit
+    reported); each other utterance replays and adds no signature; one replay
+    runs under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
+    inside it would raise); then the calls over all utterances captured and
+    eager in turns (captured, eager, eager, captured; host clock,
+    synchronised): ms per call and per audio second, each the mean of its
+    two."""
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision
+    from simwhisper_codec_tpu_torch.utils import aot
+
+    program = owner.program
+    rec = owner.program = ProgramArgs(program)
+    try:
+        before = program.count
+        call(utts[0])
+        assert program.source == "captured" and program.count == before + 1, (name, program.source, program.count)
+        got = host_array(call(utts[0]))
+        assert program.source == "replayed", (name, program.source)
+        with aot.eager():
+            want = host_array(call(utts[0]))
+        for u in utts[1:]:
+            call(u)
+            assert program.source == "replayed" and program.count == before + 1, (name, program.source, program.count)
+        with torch.no_grad(), f32_precision(precision):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                program(*rec.args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        times = {"captured": [], "eager": []}
+        for setting in ("captured", "eager", "eager", "captured"):
+            with aot.eager() if setting == "eager" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for u in utts:
+                    call(u)
+                torch.cuda.synchronize()
+                times[setting].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        owner.program = program
+    audio_s = sum(len(u) for u in utts) / sr
+    out = {"bucket_samples": int(rec.args[0].shape[-1]), "signatures": program.count,
+           "replay_vs_eager": tower_err(got, want), "bit_for_bit": bool(np.array_equal(got, want)),
+           "calls": len(utts), "audio_s": audio_s}
+    for setting, ms in times.items():
+        out[f"{setting}_ms_per_call"] = float(np.mean(ms)) / len(utts)
+        out[f"{setting}_ms_per_audio_s"] = float(np.mean(ms)) / audio_s
+    assert out["replay_vs_eager"] <= TOWER_TOL, (name, out)
+    return out
+
+
+def tower_program_check(torch, towers: dict, rng) -> dict:
+    """The towers' programs (``program_check``) on two utterances of a new
+    bucket (11 s and 13.5 s: 16 s), TF32 off: the CTC logits (and the
+    transcripts, captured against eager), UTMOS, the speaker embedding
+    through WavLM-large and through fbank (random ECAPA; one signature a
+    hop-truncated length, so one utterance)."""
+    from simwhisper_codec_tpu_torch.eval.speaker import SpeakerEmbedder
+    from simwhisper_codec_tpu_torch.utils import aot
+
+    utts = [voice(rng, s, 16000) for s in (11.0, 13.5)]
+    asr, utmos, spk = towers["asr"], towers["utmos"], towers["speaker"]
+    fbank = SpeakerEmbedder(None, "fbank", device="cuda")
+    out = {"ctc_logits": program_check(torch, "ctc_logits", asr, asr.logits, utts),
+           "utmos": program_check(torch, "utmos", utmos, utmos.score, utts),
+           "speaker_wavlm": program_check(torch, "speaker_wavlm", spk, spk.embed, utts),
+           "speaker_fbank": program_check(torch, "speaker_fbank", fbank, fbank.embed, utts[:1])}
+    with aot.eager():
+        eager_text = [asr.transcribe(u) for u in utts]
+    assert [asr.transcribe(u) for u in utts] == eager_text, "captured transcripts differ from eager ones"
+    log(f"[eval] {gpu_line()}: the towers as CUDA graphs (utils/aot.py), full width, TF32 off, against "
+        f"aot.eager() (tolerance {TOWER_TOL}; transcripts equal): {json.dumps(out)}")
+    return out
+
+
 def eval_phase(torch, cfg, codec, weights: Path) -> None:
     """The quality evaluation on the card (``eval_corpus.py --full-report``):
     synthetic tower weights at the published widths written by the port's
@@ -1192,6 +1408,7 @@ def eval_phase(torch, cfg, codec, weights: Path) -> None:
             assert all(e <= TOWER_TOL for e in errs.values()), errs
             pad = padded_vs_exact(torch, card, voice(rng, 5.3, 16000))
             assert all(e <= TOWER_TOL for e in pad.values()), pad
+            tower_program_check(torch, card, rng)
             log(f"[eval] full width, TF32 off: card vs CPU on a 4 s utterance, max|d| / max(max|ref|, 1): "
                 f"{json.dumps(errs)} (tolerance {TOWER_TOL}), transcripts equal ({len(card['transcript'])} "
                 f"characters); a 5.3 s utterance padded to its 8 s bucket vs its exact length on the card: "
@@ -1526,7 +1743,10 @@ BENCH_RUNS = {
     "bench-fast": ("fast(bf16)", "fast", ("pflash_attention", "ln_ffn_bf16")),
     "bench-fast-int8-mixed": ("fast-int8(mixed)", "fast-int8", ("pflash_attention", "ln_ffn_bf16", "ln_ffn_int8")),
     "bench-fast-int8-full": ("fast-int8(full)", "fast-int8-full", ("pflash_attention", "ln_ffn_int8")),
+    "bench-fast-dw": ("fast(bf16)", "fast", ("pflash_attention", "ln_ffn_bf16", "convnext_dw")),
 }
+# launch run -> the bf16 detokenize's Vocos (SIMWHISPER_FUSED_VOCOS=dw in the bench); the others run "fused"
+BENCH_VOCOS = {"bench-fast-dw": "fused-dw"}
 
 
 def check_bench_line(torch, cfg, rec: dict, where: str) -> None:
@@ -1562,23 +1782,29 @@ def bench_in_process(torch, cfg, model) -> dict:
     nonzero for each kernel the section runs; ``BENCH_ITERS`` chained round
     trips under ``torch.cuda.set_sync_debug_mode("error")`` (a replay that
     synchronised would raise) whose accumulator equals n x one round trip's,
-    the host's enqueue time beside the whole.  Returns launches by run and
-    the bench's programs."""
+    the host's enqueue time beside the whole.  ``bench-fast-dw`` is the bf16
+    section with ``SIMWHISPER_FUSED_VOCOS=dw`` (``bench.programs(model,
+    "fused-dw")``) against ``AudioCodec(mode="fast", vocos_impl="fused-dw")``:
+    B4 on every Vocos block, B2's Vocos chain on none.  Then the bench's
+    ``bf16_x_realtime`` with each Vocos, as ``bench.run`` measures it (its
+    pipelined round trips), in turns.  Returns launches by run and the
+    bench's (fused) programs."""
     from simwhisper_codec_tpu_torch import bench
     from simwhisper_codec_tpu_torch.models.codec import AudioCodec, f32_precision, quantize_for_mode
     from simwhisper_codec_tpu_torch.ops import _cuda
 
     quantize_for_mode(model, "fast-int8-full")
-    progs = bench.programs(model)
+    progs = {vocos: bench.programs(model, vocos) for vocos in ("fused", "fused-dw")}
     batch_inputs = bench.inputs(cfg, BENCH_BATCH, "cuda")
     wav, lengths, frame_valid = batch_inputs
     wav_np, lens_np = wav.cpu().numpy(), lengths.cpu().numpy()
-    rts = bench.round_trips(progs, batch_inputs)
+    rts = {vocos: bench.round_trips(p, batch_inputs) for vocos, p in progs.items()}
     zero = torch.zeros((), device="cuda")
     launches_by_run, report = {}, {}
     for run, (section, mode, kernels) in BENCH_RUNS.items():
-        tok, detok = (progs[name] for name in bench.SECTIONS[section])
-        rt = rts[section]
+        vocos = BENCH_VOCOS.get(run, "fused")
+        tok, detok = (progs[vocos][name] for name in bench.SECTIONS[section])
+        rt = rts[vocos][section]
         with torch.no_grad(), f32_precision("default"):
             rt(zero)  # captures the section's programs not yet captured
             torch.cuda.synchronize()
@@ -1603,7 +1829,8 @@ def bench_in_process(torch, cfg, model) -> dict:
             chained = float(acc)
             chain_s = time.perf_counter() - t0
         assert abs(chained - BENCH_ITERS * one) <= BENCH_ACC_RTOL * BENCH_ITERS * abs(one), (run, chained, one)
-        codec = AudioCodec(cfg, model, batch_size=BENCH_BATCH, mode=mode, device="cuda")
+        codec = AudioCodec(cfg, model, batch_size=BENCH_BATCH, mode=mode, device="cuda",
+                           vocos_impl=BENCH_VOCOS.get(run))
         warm = codec.inference_tokenize(wav_np, lens_np)  # captures
         codec.inference_detokenize(warm["codes"].cpu().numpy(), warm["codes_lengths"].cpu().numpy())
         torch.cuda.synchronize()
@@ -1613,8 +1840,8 @@ def bench_in_process(torch, cfg, model) -> dict:
         torch.cuda.synchronize()
         serving = dict(_cuda.launch_counts)
         assert launches == recorded == serving, f"{run}: launches {launches}, graphs {recorded}, serving {serving}"
-        if mode in ("fast", "fast-int8"):
-            assert launches == expected_launches(mode, cfg, 1, 1), (run, launches)
+        if mode in ("fast", "fast-int8"):  # fast-dw: B4 on every Vocos block, B2's Vocos chain on none
+            assert launches == expected_launches("fast-dw" if run in BENCH_VOCOS else mode, cfg, 1, 1), (run, launches)
         missing = [k for k in kernels if not any(key.split(":")[0] == k and n > 0 for key, n in launches.items())]
         assert not missing, f"{run}: no launch of {missing}"
         assert torch.equal(t["codes"], ref["codes"]), f"{run}: bench codes differ from serving codes"
@@ -1631,7 +1858,16 @@ def bench_in_process(torch, cfg, model) -> dict:
         del codec, warm, ref, ref_y, t, y
         torch.cuda.empty_cache()
     log(f"[bench] in process, batch {BENCH_BATCH} x 30 s: {json.dumps(report)}")
-    return launches_by_run, progs
+    audio_s = BENCH_ITERS * BENCH_BATCH * cfg.chunk_samples / cfg.input_sample_rate
+    rates = {"fused": [], "fused-dw": []}
+    with torch.no_grad(), f32_precision("default"):
+        for vocos in ("fused", "fused-dw", "fused-dw", "fused"):
+            rates[vocos].append(audio_s / bench.pipelined_s(rts[vocos]["fast(bf16)"], BENCH_ITERS, zero, vocos))
+    log(f"[bench] {gpu_line()}: bf16_x_realtime (pipelined fast round trips, batch {BENCH_BATCH} x 30 s, "
+        f"{BENCH_ITERS} iterations, in turns) by SIMWHISPER_FUSED_VOCOS: unset (fused) "
+        f"{', '.join(f'{r:.2f}' for r in rates['fused'])}; dw (fused-dw, B4) "
+        f"{', '.join(f'{r:.2f}' for r in rates['fused-dw'])}")
+    return launches_by_run, progs["fused"]
 
 
 def median_synced_ms(torch, fn, reps: int = 5) -> float:
@@ -2284,6 +2520,7 @@ def hidden_states_check(torch) -> dict:
     from simwhisper_codec_tpu_torch.models.codec import f32_precision
     from simwhisper_codec_tpu_torch.ops import _cuda
     from simwhisper_codec_tpu_torch.ops.mel import MelConstants, log_mel, mel_lengths
+    from simwhisper_codec_tpu_torch.utils import aot
 
     dev = torch.device("cuda")
     cfg, fe = EncoderConfig(), FeatureExtractorConfig()
@@ -2306,10 +2543,24 @@ def hidden_states_check(torch) -> dict:
             torch.cuda.synchronize()
             launches[f"hidden-{impl}"] = dict(_cuda.launch_counts)
             ms[impl] = time_ms(torch, run, 3)
+        # each impl's states as a CUDA graph (utils/aot.py; one 8 x 30 s signature), a replay against eager
+        graphs = {}
+        for impl in ("dense", "pflash", "flash"):
+            program = aot.CapturedProgram(lambda m, n, impl=impl: {"states": enc(m, n, attn_impl=impl,
+                                                                                  output_hidden_states=True)[2]},
+                                          f"hidden-{impl}")
+            program(mel, lens)
+            replay = program(mel, lens)["states"]
+            assert program.count == 1 and program.source == "replayed", (impl, program.count, program.source)
+            graphs[impl] = {"replay_vs_eager": rel_err(torch, replay, out[impl][2]),
+                            "bit_for_bit": bool(torch.equal(replay, out[impl][2])),
+                            "ms": time_ms(torch, lambda: program(mel, lens), 3), "eager_ms": ms[impl]}
+            del program, replay
         final, out_lens, states = out["dense"]
         assert states.shape == (cfg.encoder_layers + 1, len(HIDDEN_SECONDS), 1500, cfg.d_model), states.shape
         assert torch.equal(states[-1], final) and bool(torch.isfinite(states).all())
         errs = {impl: rel_err(torch, out[impl][2], states) for impl in ("pflash", "flash")}
+        errs.update({f"{impl} graph vs eager": g["replay_vs_eager"] for impl, g in graphs.items()})
         want = {"hidden-dense": {}, "hidden-pflash": {"pflash_attention_f32": cfg.encoder_layers},
                 "hidden-flash": {"flash_attention_f32": cfg.encoder_layers}}
         assert launches == want, f"hidden-state launches {launches} != expected {want}"
@@ -2323,11 +2574,35 @@ def hidden_states_check(torch) -> dict:
     log(f"[variants] {gpu_line()}: encoder hidden states at EncoderConfig() (12 x 768, random weights), "
         f"8 x 30 s windows (utterances of {', '.join(map(str, HIDDEN_SECONDS))} s), TF32 off: ms a call "
         f"{json.dumps(ms)}; 13 states, max |d| / max(max |dense|, 1): {json.dumps(errs)} (tolerance "
-        f"{VARIANT_TOL}; semantic = card vs CPU); launches {json.dumps(launches)}")
+        f"{VARIANT_TOL}; semantic = card vs CPU); launches {json.dumps(launches)}; as CUDA graphs, ms a call "
+        f"(CUDA events) and replay vs eager: {json.dumps(graphs)}")
     bad = {k: v for k, v in errs.items() if not v <= VARIANT_TOL}
     if bad:
         raise AssertionError(f"hidden states out of tolerance: {bad}")
     return launches
+
+
+def extractor_program_check(torch) -> dict:
+    """The recipe's extractors' programs (``program_check``) at full width,
+    random weights: ``FeatureExtractor`` at ``EncoderConfig()`` (its one 30 s
+    window; utterances of 12 s and 27 s) and ``HubertFeatureExtractor`` at
+    ``hubert_base_config()`` (2.5 s and 3.5 s: the 4 s bucket)."""
+    from simwhisper_codec_tpu_torch.config import EncoderConfig
+    from simwhisper_codec_tpu_torch.experiments.hifigan_continue.extract_features import (
+        FeatureExtractor,
+        HubertFeatureExtractor,
+    )
+
+    rng = np.random.default_rng(15)
+    whisper = FeatureExtractor(EncoderConfig(), random_encoder(torch, EncoderConfig()), device="cuda")
+    hubert = HubertFeatureExtractor(allow_random=True, device="cuda")
+    out = {"hidden_states": program_check(torch, "hidden_states", whisper, whisper.extract,
+                                          [voice(rng, s, 16000) for s in (12.0, 27.0)]),
+           "hubert": program_check(torch, "hubert_features", hubert, hubert.extract,
+                                   [voice(rng, s, 16000) for s in (2.5, 3.5)])}
+    log(f"[variants] {gpu_line()}: the recipe's extractors as CUDA graphs (utils/aot.py), full width, random "
+        f"weights, TF32 off, against aot.eager() (tolerance {TOWER_TOL}): {json.dumps(out)}")
+    return out
 
 
 def variants_check(torch) -> None:
@@ -2555,6 +2830,8 @@ def variants_phase(torch) -> dict:
     t_phase = time.perf_counter()
     launches = hidden_states_check(torch)
     torch.cuda.empty_cache()
+    extractor_program_check(torch)
+    torch.cuda.empty_cache()
     variants_check(torch)
     torch.cuda.empty_cache()
     recipe_phase(torch)
@@ -2650,7 +2927,13 @@ def tp_round_trip(torch, model, wav, lens, label, mesh=None, codes_in=None):
     decodes ``codes_in`` (G, B, T_code) where given, else the tokenize's
     codes.  Returns codes, waveforms and FSQ inputs (numpy) and the host ms
     around the synchronised calls."""
-    from simwhisper_codec_tpu_torch.models.codec import detokenize, f32_precision, mode_programs, tokenize
+    from simwhisper_codec_tpu_torch.models.codec import (
+        detokenize,
+        f32_precision,
+        mode_deterministic,
+        mode_programs,
+        tokenize,
+    )
     from simwhisper_codec_tpu_torch.ops.fsq import compress
     from simwhisper_codec_tpu_torch.parallel import mesh as pmesh
 
@@ -2666,7 +2949,7 @@ def tp_round_trip(torch, model, wav, lens, label, mesh=None, codes_in=None):
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     try:
-        with torch.no_grad(), f32_precision("highest" if mode == "parity" else "default"):
+        with torch.no_grad(), f32_precision("highest" if mode == "parity" else "default", mode_deterministic(mode)):
             tok = tokenize(model, w, n, **tok_kw)
             codes, clen = gather(tok["codes"], 1), gather(tok["codes_lengths"])
             dec = codes if given is None else given
@@ -2678,6 +2961,98 @@ def tp_round_trip(torch, model, wav, lens, label, mesh=None, codes_in=None):
     with torch.no_grad():
         fsq_in = gather(compress(model.consts.fsq, latents[0].to(torch.float32)))
     return codes.cpu().numpy(), y.to(torch.float32).cpu().numpy(), fsq_in.cpu().numpy(), ms
+
+
+# the TP runs also held as CUDA graphs over NCCL (``--tp_gpus``): between
+# them every collective of the sharded programs (row-parallel out_proj and
+# fc2, B2 / B3 / B4's partial sums, B3's row max)
+TP_CAPTURE_RUNS = ("parity", "fast", "fast-dw", "fast-int8")
+
+
+def tp_programs(shard, label: str) -> dict:
+    """Run ``label``'s tokenize and detokenize on the shard as ``AudioCodec``
+    builds them (``serving_program``, one pool), captured when the model
+    group is NCCL's (``model_groups_capturable``)."""
+    from simwhisper_codec_tpu_torch.models.codec import model_groups_capturable, serving_program
+    from simwhisper_codec_tpu_torch.utils import aot
+
+    mode, attn_impl, vocos_impl = TP_RUNS[label]
+    pool, capture = aot.GraphPool(), model_groups_capturable(shard)
+    return {d: serving_program(shard, mode, d, pool, attn_impl, vocos_impl, capture=capture)
+            for d in ("tokenize", "detokenize")}
+
+
+def tp_program_round_trip(torch, progs: dict, wav, lens, label, mesh, codes_in, dev):
+    """``tp_round_trip`` through ``tp_programs``: this data rank's rows
+    tokenized, one process's codes ``codes_in`` decoded (the chunk width a
+    device int32), both gathered over the data axis outside the programs.
+    Returns codes, waveforms (numpy) and the host ms around the
+    synchronised calls."""
+    from simwhisper_codec_tpu_torch.models.codec import f32_precision, mode_deterministic
+    from simwhisper_codec_tpu_torch.parallel import mesh as pmesh
+
+    mode = TP_RUNS[label][0]
+    rows = pmesh.batch_rows(mesh, len(wav))
+    w, n = torch.from_numpy(wav[rows]).to(dev), torch.from_numpy(lens[rows]).to(dev)
+    given = torch.from_numpy(codes_in).to(dev)
+    width = torch.full((), given.shape[-1], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad(), f32_precision("highest" if mode == "parity" else "default", mode_deterministic(mode)):
+        tok = progs["tokenize"](w, n)
+        codes, clen = pmesh.gather_rows(mesh, tok["codes"], 1), pmesh.gather_rows(mesh, tok["codes_lengths"])
+        y = pmesh.gather_rows(mesh, progs["detokenize"](given[:, rows], clen[rows], width)["y"])
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    return codes.cpu().numpy(), y.to(torch.float32).cpu().numpy(), ms
+
+
+def tp_capture_checks(torch, shard, mesh, wav, lens, work: Path, eager: dict, keep, dev) -> dict:
+    """Each run of ``TP_CAPTURE_RUNS`` through ``tp_programs`` on this rank
+    (NCCL): a first call captures, a second replays, counted and timed,
+    against this rank's eager run (``eager``: label -> (codes, waveform,
+    ms)): codes and waveforms bit for bit or not, their difference,
+    ``trace_counts``, the launches the replays add."""
+    from simwhisper_codec_tpu_torch.ops import _cuda
+
+    out = {}
+    for label in TP_CAPTURE_RUNS:
+        codes_in = np.load(work / f"ref_{label}.npz")["codes"]
+        progs = tp_programs(shard, label)
+        tp_program_round_trip(torch, progs, wav, lens, label, mesh, codes_in, dev)  # captures both
+        _cuda.reset_launch_counts()
+        codes, y, ms = tp_program_round_trip(torch, progs, wav, lens, label, mesh, codes_in, dev)
+        e_codes, e_y, e_ms = eager[label]
+        out[label] = {"trace_counts": {d: p.count for d, p in progs.items()},
+                      "sources": {d: p.source for d, p in progs.items()}, "launches": dict(_cuda.launch_counts),
+                      "codes_bit_for_bit": bool(np.array_equal(codes, e_codes)),
+                      "code_agreement": float(np.mean(codes == e_codes)),
+                      "wave_bit_for_bit": bool(np.array_equal(y, e_y)),
+                      "wave_max_abs_diff": float(np.abs(np.where(keep, y - e_y, 0.0)).max()),
+                      "wave_max_abs": float(np.abs(np.where(keep, e_y, 0.0)).max()), "ms": ms, "eager_ms": e_ms}
+        del progs
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_capture_failures(label: str, run: dict, swap: dict, cfg, model_axis: int, where: str) -> list:
+    """Where one captured TP run is off its rank's eager run: not one program
+    a direction, not replayed, other launches than eager TP's, or codes and
+    waveform neither bit for bit nor within this phase's bounds."""
+    failures = []
+    if run["trace_counts"] != {"tokenize": 1, "detokenize": 1} or set(run["sources"].values()) != {"replayed"}:
+        failures.append(f"TP {where} {label} captured: programs {run['trace_counts']}, {run['sources']}")
+    want = expected_tp_launches(label, cfg, model_axis)
+    if run["launches"] != want:
+        failures.append(f"TP {where} {label} captured: launches {run['launches']} != {want}")
+    if not (run["codes_bit_for_bit"] and run["wave_bit_for_bit"]):
+        parity = TP_RUNS[label][0] == "parity"
+        agree = TP_PARITY_AGREEMENT if parity else TP_FAST_AGREEMENT
+        wave = TP_PARITY_WAVE_RTOL * run["wave_max_abs"] if parity else TP_SWAP_FACTOR * swap["wave"]
+        if run["code_agreement"] < agree or run["wave_max_abs_diff"] > wave:
+            failures.append(f"TP {where} {label} captured vs eager: codes {run['code_agreement']:.6f} (>= {agree}), "
+                            f"waveform {run['wave_max_abs_diff']:.4g} (<= {wave:.4g})")
+    return failures
 
 
 def expected_tp_launches(label: str, cfg, model_axis: int) -> dict:
@@ -2757,6 +3132,7 @@ def tp_worker(torch, work: Path, model_axis: int, backend: str) -> None:
     out = {"rank": ctx.rank, "mesh": {"data": mesh.data_size, "model": mesh.model_size}, "backend": backend,
            "device": str(device), "runs": {}}
     frames, keep = tp_masks(lens, wav.shape[1])
+    eager = {}
     for label in TP_RUNS:
         ref = np.load(work / f"ref_{label}.npz")
         held = np.load(work / f"ref_{TP_REFERENCE.get(label, label)}.npz")
@@ -2765,6 +3141,8 @@ def tp_worker(torch, work: Path, model_axis: int, backend: str) -> None:
         _cuda.reset_launch_counts()
         codes, y, fsq_in, ms = tp_round_trip(torch, shard, wav, lens, label, mesh, ref["codes"])
         launches = dict(_cuda.launch_counts)
+        if label in TP_CAPTURE_RUNS:
+            eager[label] = (codes, y, ms)
         fsq_diff = float(np.abs(np.where(frames[..., None], fsq_in - ref["fsq_in"], 0.0)).max())
         to_boundary = np.abs(ref["fsq_in"] - np.floor(ref["fsq_in"]) - 0.5)  # to the nearest rounding boundary
         out["runs"][label] = {
@@ -2775,6 +3153,9 @@ def tp_worker(torch, work: Path, model_axis: int, backend: str) -> None:
             "wave_max_abs_diff": float(np.abs(np.where(keep, y - ref["y"], 0.0)).max()),
             "wave_max_abs": float(np.abs(np.where(keep, ref["y"], 0.0)).max()),
             "distinct_codes": int(len(np.unique(codes)))}
+    if backend == "nccl":  # one card a rank: the programs captured, as AudioCodec captures them
+        out["captured"] = tp_capture_checks(torch, shard, mesh, wav, lens, work, eager, keep, device)
+    del eager
     out["layers"] = tp_layer_checks(torch, full, shard, device)
     del shard, full
     torch.cuda.empty_cache()
@@ -2871,6 +3252,12 @@ def tp_group(torch, cfg, work: Path, model_axis: int, n_ranks: int, backend: str
             f"within that of a rounding boundary), waveforms from one process's codes max |d| "
             f"{run['wave_max_abs_diff']:.4g} (max |y| {run['wave_max_abs']:.4g}), round trip {run['ms']:.1f} ms "
             f"(one process {one_process_ms[label]:.1f} ms), launches a rank {json.dumps(run['launches'])}")
+    for label, run in results[0].get("captured", {}).items():
+        log(f"[tp] {gpu_line()}: {geometry} ({backend}) {label} as CUDA graphs against eager on rank 0: codes bit "
+            f"for bit {run['codes_bit_for_bit']} ({run['code_agreement']:.6f} equal), waveforms bit for bit "
+            f"{run['wave_bit_for_bit']} (max |d| {run['wave_max_abs_diff']:.4g}), programs {run['trace_counts']}, "
+            f"round trip {run['ms']:.1f} ms captured, {run['eager_ms']:.1f} ms eager; launches a rank "
+            f"{json.dumps(run['launches'])}")
     for label, rel in results[0]["layers"].items():
         log(f"[tp] {geometry} ({backend}) {label}, one layer on one input, sharded against whole: mean |d| of the "
             f"update over its mean |update|: decoder layer {rel['decoder']:.3g}, Vocos block {rel['vocos']:.3g} "
@@ -2892,6 +3279,10 @@ def tp_group(torch, cfg, work: Path, model_axis: int, n_ranks: int, backend: str
             if run["launches"] != want:
                 failures.append(f"TP {where} {label}: launches {run['launches']} != {want}")
             failures += tp_run_failures(label, run, swap, where)
+        for label, run in res.get("captured", {}).items():
+            failures += tp_capture_failures(label, run, swap, cfg, model_axis, where)
+        if backend == "nccl" and set(res.get("captured", {})) != set(TP_CAPTURE_RUNS):
+            failures.append(f"TP {where}: captured runs {sorted(res.get('captured', {}))}")
         failures += [f"TP {where} {label}: the {name} layer's update differs from the whole layer's by {rel:.3g} of "
                      f"its mean |update| (> {TP_LAYER_MEAN_RTOL})"
                      for label, rels in res["layers"].items() for name, rel in rels.items() if rel > TP_LAYER_MEAN_RTOL]
@@ -3049,14 +3440,15 @@ def tp_phase(torch, cfg, work: Path) -> tuple:
 def tp_gpus_phase(torch, n_gpus: int, work: Path) -> None:
     """``--tp_gpus N``: the one-process references on card 0, then the TP
     ranks one card each over NCCL at (1 data x N model) and, for N = 4,
-    (2 x 2)."""
+    (1 x 2) on two of the cards and (2 x 2); each rank's programs eager and
+    captured (``TP_CAPTURE_RUNS``)."""
     from simwhisper_codec_tpu_torch.config import load_config
 
     cfg = load_config(TP_CONFIG)
     log(f"[tp] {gpu_line()} (x{torch.cuda.device_count()})")
     one_process_ms = tp_references(torch, cfg, work)
-    for model_axis in ((n_gpus, 2) if n_gpus == 4 else (n_gpus,)):
-        tp_group(torch, cfg, work, model_axis, n_gpus, "nccl", one_process_ms)
+    for model_axis, n_ranks in (((2, 2), (4, 4), (2, 4)) if n_gpus == 4 else ((n_gpus, n_gpus),)):
+        tp_group(torch, cfg, work, model_axis, n_ranks, "nccl", one_process_ms)
 
 
 def main() -> int:
@@ -3112,6 +3504,8 @@ def main() -> int:
     log_build_reports(_cuda.build_dir(), _cuda.SOURCES)
     with torch.no_grad():
         rows = kernel_phase(torch)
+        int8_ffn_check(torch)
+    torch.cuda.empty_cache()
     cfg = load_config("config/SimWhisperCodec.yaml")
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator().manual_seed(0))

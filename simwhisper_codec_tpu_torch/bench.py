@@ -40,6 +40,12 @@ FLOPs per audio second times ``bf16_x_realtime`` over the card's dense bf16
 peak (``peak_tflops``: 989.4 TFLOP/s for an "H100 80GB HBM3", 0 on the CPU
 or an unknown card; ``BENCH_PEAK_TFLOPS`` overrides it).
 
+``SIMWHISPER_FUSED_VOCOS`` picks the Vocos of the bf16 ``detokenize``, as
+it does in the JAX bench: unset or ``1``, the fused pointwise chain
+(``vocos_impl="fused"``, B2); ``dw``, the whole ConvNeXt block
+(``vocos_impl="fused-dw"``, B4); any other value is an error.  The int8
+sections keep the int8 Vocos whatever it says, as the JAX bench's do.
+
 The kernel libraries are built into and loaded from ``BENCH_AOT_DIR``
 (default ``.aot_cache/bench`` at the repository root), so a later run skips
 ``nvcc``; the graphs are captured again in every process.
@@ -74,6 +80,8 @@ REPO_ROOT = Path(__file__).resolve().parents[1]
 DEFAULT_AOT_DIR = REPO_ROOT / ".aot_cache" / "bench"
 TARGET_X_REALTIME = 10.0  # the JAX bench's fixed per-chip target (vs_baseline = value / 10)
 KERNEL_SOURCES = ("pflash", "ln_ffn", "ln_ffn_int8")  # the csrc/ libraries the bench's programs launch
+# SIMWHISPER_FUSED_VOCOS -> the bf16 detokenize's vocos_impl (unset: "fused")
+FUSED_VOCOS = {"1": "fused", "dw": "fused-dw"}
 # the serving mode each program's keyword arguments come from
 PROGRAM_MODES = {"tok": ("fast", "tokenize"), "detok": ("fast", "detokenize"),
                  "detok8": ("fast-int8", "detokenize"), "tok8": ("fast-int8-full", "tokenize")}
@@ -82,14 +90,32 @@ SECTIONS = {"fast(bf16)": ("tok", "detok"), "fast-int8(mixed)": ("tok", "detok8"
             "fast-int8(full)": ("tok8", "detok8")}
 
 
-def programs(model) -> Dict[str, aot.CapturedProgram]:
+def fused_vocos_impl(value: Optional[str] = None) -> str:
+    """The bf16 ``detokenize``'s ``vocos_impl`` for a ``SIMWHISPER_FUSED_VOCOS``
+    value (default: the variable's): ``fused`` when unset or ``1``,
+    ``fused-dw`` for ``dw``; raises ``ValueError`` on any other value."""
+    value = os.environ.get("SIMWHISPER_FUSED_VOCOS") if value is None else value
+    if not value:
+        return "fused"
+    if value not in FUSED_VOCOS:
+        raise ValueError(f"SIMWHISPER_FUSED_VOCOS must be unset, 1 or dw, got {value!r}")
+    return FUSED_VOCOS[value]
+
+
+def kernel_sources(vocos_impl: str = "fused") -> tuple:
+    """The csrc/ libraries the bench's programs launch with this bf16 Vocos."""
+    return KERNEL_SOURCES + (("convnext_dw",) if vocos_impl == "fused-dw" else ())
+
+
+def programs(model, vocos_impl: str = "fused") -> Dict[str, aot.CapturedProgram]:
     """The bench's four programs on ``model``, on one graph pool: ``tok`` /
-    ``detok`` (``fast``), ``detok8`` (``fast-int8``'s detokenize) and ``tok8``
-    (``fast-int8-full``'s tokenize), each ``AudioCodec``'s own
-    (``serving_program``).  The int8 ones need
-    ``quantize_for_mode(model, "fast-int8-full")``."""
+    ``detok`` (``fast``; ``detok``'s Vocos is ``vocos_impl``), ``detok8``
+    (``fast-int8``'s detokenize) and ``tok8`` (``fast-int8-full``'s
+    tokenize), each ``AudioCodec``'s own (``serving_program``).  The int8
+    ones need ``quantize_for_mode(model, "fast-int8-full")``."""
     pool = aot.GraphPool()
-    return {name: serving_program(model, mode, direction, pool) for name, (mode, direction) in PROGRAM_MODES.items()}
+    return {name: serving_program(model, mode, direction, pool, vocos_impl=vocos_impl if name == "detok" else None)
+            for name, (mode, direction) in PROGRAM_MODES.items()}
 
 
 def inputs(cfg: CodecConfig, batch: int, device) -> tuple:
@@ -153,15 +179,16 @@ def latency_s(rt: Callable, iters: int, zero: torch.Tensor, where: str) -> float
 
 
 def run(cfg: CodecConfig, device="cuda", batch: int = 16, iters: int = 10, *, int8_budget_s: float = 1500.0,
-        skip_int8: bool = False, peak_tflops_bf16: Optional[float] = None) -> dict:
+        skip_int8: bool = False, peak_tflops_bf16: Optional[float] = None, vocos_impl: str = "fused") -> dict:
     """The bench at ``cfg`` on ``device``: the 16-key record of the JAX bench
-    (weights from ``init_params`` at seed 0); prints a ``bench:`` line per section."""
+    (weights from ``init_params`` at seed 0), the bf16 ``detokenize`` with
+    ``vocos_impl``; prints a ``bench:`` line per section."""
     log = functools.partial(print, flush=True)
     device = torch.device(device)
     if device.type == "cuda":
-        _cuda.build_kernels(KERNEL_SOURCES)
+        _cuda.build_kernels(kernel_sources(vocos_impl))
     model = init_params(cfg, torch.Generator().manual_seed(0)).to(device).eval()
-    progs = programs(model)
+    progs = programs(model, vocos_impl)
     batch_inputs = inputs(cfg, batch, device)
     rts = round_trips(progs, batch_inputs)
     zero = torch.zeros((), device=device)
@@ -241,6 +268,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     args = ap.parse_args(argv)
+    vocos_impl = fused_vocos_impl()  # a bad value fails before anything runs
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("bench: no CUDA device (torch.cuda.is_available() is false); cannot produce numbers: "
@@ -253,7 +281,7 @@ def main(argv=None) -> None:
                  iters=int(os.environ.get("BENCH_ITERS", "10")),
                  int8_budget_s=float(os.environ.get("BENCH_INT8_BUDGET", "1500")),
                  skip_int8=bool(os.environ.get("BENCH_SKIP_INT8")),
-                 peak_tflops_bf16=float(os.environ.get("BENCH_PEAK_TFLOPS", 0)) or None)
+                 peak_tflops_bf16=float(os.environ.get("BENCH_PEAK_TFLOPS", 0)) or None, vocos_impl=vocos_impl)
     print(json.dumps(record), flush=True)
 
 

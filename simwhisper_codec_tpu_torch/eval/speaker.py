@@ -18,6 +18,9 @@ states, + 1e-6, InstanceNorm) and ``fbank`` (torchaudio-style log-mel).
 With frame lengths, a right-padded batch equals exact-length runs: masked
 statistics, zero pads.  Trees hold torch-layout weights; batch norm runs in
 eval mode on the stored statistics.  Run under ``f32_precision("highest")``.
+``SpeakerEmbedder.program`` runs a frontend and ECAPA as one
+``utils/aot.py`` program (a CUDA graph per input shape on the card), the
+twin of the JAX ``_forward_wavlm`` / ``_forward_fbank`` jits.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from simwhisper_codec_tpu_torch.models.ssl import (
     tree_map,
     wavlm_large_config,
 )
+from simwhisper_codec_tpu_torch.utils import aot
 from simwhisper_codec_tpu_torch.utils.ssl_checkpoint import convert_msft_wavlm, to_tensor
 
 EMB_DIM = 256  # ECAPA_TDNN_SMALL default (ecapa_tdnn.py:295)
@@ -203,6 +207,11 @@ class FbankFrontend:
         self.mel_fb = torch.from_numpy(htk_mel_filter_bank(self.N_FFT // 2 + 1, feat_dim, sample_rate, 0.0,
                                                            sample_rate / 2))
 
+    def to(self, device) -> "FbankFrontend":
+        """The window and the filter bank on ``device``; returns self."""
+        self.window, self.mel_fb = self.window.to(device), self.mel_fb.to(device)
+        return self
+
     def __call__(self, wav: torch.Tensor) -> torch.Tensor:
         """(B, S) -> instance-normed log-mel (B, T, M)."""
         half = self.N_FFT // 2
@@ -318,7 +327,9 @@ def load_wavlm_ecapa_checkpoint(ckpt_path: str, ssl_cfg: SSLConfig = None):
 class SpeakerEmbedder:
     """Reference-matching speaker embedder, WavLM-large (or fbank) -> ECAPA:
     ``embed(wav)`` is ``extract_spk_emb.py``'s per-utterance flow.  WavLM
-    inputs pad to power-of-two-second buckets with masked statistics."""
+    inputs pad to power-of-two-second buckets with masked statistics.
+    ``program``: the frontend and ECAPA on the weights, one program per
+    bucket (WavLM) or per hop-truncated length (fbank)."""
 
     def __init__(self, ecapa_params: dict = None, feat_type: str = "fbank", wavlm_params: dict = None,
                  feature_weight=None, ssl_cfg: SSLConfig = None, seed: int = 0, device=None,
@@ -336,13 +347,23 @@ class SpeakerEmbedder:
                                    else torch.as_tensor(feature_weight, dtype=torch.float32)).to(self.device)
             feat_dim = self.ssl_cfg.d_model
         elif feat_type == "fbank":
-            self.frontend = FbankFrontend(80)
+            self.frontend = FbankFrontend(80).to(self.device)
             feat_dim = 80
         else:
             raise ValueError(f"unsupported feat_type: {feat_type}")
         if ecapa_params is None:
             ecapa_params = init_ecapa(torch.Generator().manual_seed(seed), feat_dim)
         self.params = move(ecapa_params)
+        forward = self._forward_wavlm if feat_type == "wavlm_large" else self._forward_fbank
+        self.program = aot.CapturedProgram(forward, f"speaker_{feat_type}")
+
+    def _forward_wavlm(self, wav: torch.Tensor, lengths: torch.Tensor) -> dict:
+        feats, frame_lengths = wavlm_weighted_features(self.ssl_cfg, self.wavlm_params, self.feature_weight, wav,
+                                                       lengths)
+        return {"embedding": ecapa_forward(self.params, feats, frame_lengths)}
+
+    def _forward_fbank(self, wav: torch.Tensor) -> dict:
+        return {"embedding": ecapa_forward(self.params, self.frontend(wav))}
 
     @classmethod
     def from_checkpoint(cls, ckpt_path: str, device=None, precision: str = "highest") -> "SpeakerEmbedder":
@@ -360,14 +381,11 @@ class SpeakerEmbedder:
             if self.feat_type == "wavlm_large":
                 padded = np.zeros((1, power_of_two_bucket(n)), np.float32)
                 padded[0, : len(wav)] = wav
-                feats, frame_lengths = wavlm_weighted_features(
-                    self.ssl_cfg, self.wavlm_params, self.feature_weight, torch.from_numpy(padded).to(self.device),
-                    torch.tensor([n], device=self.device))
-                out = ecapa_forward(self.params, feats, frame_lengths)
+                out = self.program(torch.from_numpy(padded).to(self.device), torch.tensor([n], device=self.device))
             else:
                 # fbank: the reflect-centred STFT's tail frames depend on the
                 # true end, so it runs at the hop-truncated exact length
                 n = n // FbankFrontend.HOP * FbankFrontend.HOP
                 x = wav[:n] if len(wav) >= n else np.pad(wav, (0, n - len(wav)))
-                out = ecapa_forward(self.params, self.frontend(torch.from_numpy(x[None]).to(self.device)))
-        return out[0].cpu().numpy()
+                out = self.program(torch.from_numpy(np.ascontiguousarray(x[None])).to(self.device))
+        return out["embedding"][0].cpu().numpy()

@@ -10,10 +10,18 @@ Counterpart of ``simwhisper_codec_tpu/eval/utmos.py`` (reference
   -> Linear 1024->2048 -> ReLU -> Linear 2048->1            -> (B, T, 1)
   score = mean over the valid frames * 2 + 3                (utmos.py:73)
 
-The BiLSTM is ``torch.nn.LSTM`` over a packed sequence: each item runs
-over its own valid frames only, which is what the JAX ``lax.scan``'s
-valid-hold gives on valid frames (its pad-frame outputs differ, and never
-reach the score).  Run under ``f32_precision("highest")``.
+The BiLSTM (``BiLSTM``) is two unidirectional ``torch.nn.LSTM``s (cuDNN
+on the card) over the padded frames, with no host read: the forward one
+runs as it is (its valid frames never see the pads that follow them); the
+backward one runs forward over each item reversed within its own length (a
+device-side gather: frame ``L - 1 - t`` for ``t < L``, the pads left in
+place), and its output is gathered back.  On the valid frames that is what
+the JAX ``lax.scan``'s valid-hold gives, and what an LSTM over a packed
+sequence gives; pad frames are zero (the JAX scan's pad outputs differ, and
+never reach the score).  So ``UTMOSScorer.program`` can run the whole
+scorer as one ``utils/aot.py`` program, a CUDA graph per length bucket, as
+the JAX scorer jits it once per bucket.  Run under
+``f32_precision("highest")``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from simwhisper_codec_tpu_torch.models.ssl import (
     tree_map,
     wav2vec2_base_config,
 )
+from simwhisper_codec_tpu_torch.utils import aot
 from simwhisper_codec_tpu_torch.utils.ssl_checkpoint import convert_fairseq_wav2vec2, to_tensor
 
 DOMAIN_ID = 0  # utmos.py:67
@@ -57,48 +66,71 @@ class UTMOSConfig:
     proj_hidden: int = PROJ_HIDDEN
 
 
-def bilstm(p: dict, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+def reverse_within(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B, T, F): each item's first ``lengths[b]`` frames in reverse order,
+    the frames after them where they are (frame ``L - 1 - t`` for ``t < L``,
+    else ``t``); its own inverse.  A gather on the device."""
+    t = torch.arange(x.shape[1], device=x.device)[None, :]
+    last = lengths[:, None] - 1
+    index = torch.where(t <= last, last - t, t)
+    return x.gather(1, index[..., None].expand(-1, -1, x.shape[-1]))
+
+
+class BiLSTM:
     """``nn.LSTM(batch_first=True, bidirectional=True)`` with the weights of
-    ``p`` ({"fwd", "bwd"}: w_ih (4H, F), w_hh (4H, H), b_ih, b_hh; gates
-    i, f, g, o).  With ``lengths`` (B,), each item runs over its first
-    ``lengths[b]`` frames; pad-frame outputs are zero."""
-    h = p["fwd"]["w_hh"].shape[1]
-    lstm = nn.LSTM(x.shape[-1], h, batch_first=True, bidirectional=True, device="meta")
-    sd = {}
-    for suffix, d in (("", p["fwd"]), ("_reverse", p["bwd"])):
-        for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
-            kind, part = name.split("_")
-            sd[f"{'weight' if kind == 'w' else 'bias'}_{part}_l0{suffix}"] = d[name]
-    lstm.load_state_dict(sd, assign=True)
-    lstm.flatten_parameters()
-    if lengths is None:
-        return lstm(x)[0]
-    packed = nn.utils.rnn.pack_padded_sequence(x, lengths.cpu(), batch_first=True, enforce_sorted=False)
-    out, _ = lstm(packed)
-    return nn.utils.rnn.pad_packed_sequence(out, batch_first=True, total_length=x.shape[1])[0]
+    ``p`` ({"fwd", "bwd"}: w_ih (4H, F), w_hh (4H, H), b_ih, b_hh; gates i,
+    f, g, o) as two unidirectional LSTMs on the weights' device, their
+    weights flattened once (cuDNN's layout); see the module docstring."""
+
+    def __init__(self, p: dict):
+        self.dirs = []
+        for d in (p["fwd"], p["bwd"]):
+            h = d["w_hh"].shape[1]
+            lstm = nn.LSTM(d["w_ih"].shape[1], h, batch_first=True, device="meta")
+            lstm.load_state_dict({f"{'weight' if n[0] == 'w' else 'bias'}_{n[2:]}_l0": d[n]
+                                  for n in ("w_ih", "w_hh", "b_ih", "b_hh")}, assign=True)
+            lstm.flatten_parameters()
+            self.dirs.append(lstm)
+
+    def __call__(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, T, F) -> (B, T, 2H); with ``lengths`` (B,), each item over its
+        first ``lengths[b]`` frames, pad-frame outputs zero."""
+        fwd, bwd = self.dirs
+        if lengths is None:
+            return torch.cat([fwd(x)[0], bwd(x.flip(1))[0].flip(1)], dim=-1)
+        out = torch.cat([fwd(x)[0], reverse_within(bwd(reverse_within(x, lengths))[0], lengths)], dim=-1)
+        valid = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
+        return out * valid[..., None]
 
 
-def utmos_head(params: dict, ssl_features: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """SSL features (B, T, D) -> per-frame scores (B, T), domain 0, judge 288."""
+def bilstm(p: dict, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``BiLSTM(p)(x, lengths)``, the LSTMs built for this call."""
+    return BiLSTM(p)(x, lengths)
+
+
+def utmos_head(params: dict, ssl_features: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+               lstm: Optional[BiLSTM] = None) -> torch.Tensor:
+    """SSL features (B, T, D) -> per-frame scores (B, T), domain 0, judge 288;
+    ``lstm``: ``params["lstm"]``'s ``BiLSTM`` (else built for the call)."""
     b, t, _ = ssl_features.shape
     dom = params["domain_emb"][DOMAIN_ID].expand(b, t, -1)
     jud = params["judge_emb"][JUDGE_ID].expand(b, t, -1)
-    x = bilstm(params["lstm"], torch.cat([ssl_features, dom, jud], dim=-1), lengths)
+    x = (lstm or BiLSTM(params["lstm"]))(torch.cat([ssl_features, dom, jud], dim=-1), lengths)
     x = F.relu(F.linear(x, params["proj1"]["w"], params["proj1"]["b"]))
     return F.linear(x, params["proj2"]["w"], params["proj2"]["b"])[..., 0]
 
 
 def utmos_forward(cfg: UTMOSConfig, params: dict, wav: torch.Tensor,
-                  lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  lengths: Optional[torch.Tensor] = None, lstm: Optional[BiLSTM] = None) -> torch.Tensor:
     """Waveform (B, S) at 16 kHz -> MOS scores (B,): frame scores averaged
     over the (valid) frames, then ``* 2 + 3`` (``UTMOSScore.score``,
     utmos.py:49-73)."""
     out = ssl_forward(cfg.ssl, params["ssl"], wav, lengths)
     feats = out["x"]
     if lengths is None:
-        return utmos_head(params, feats).mean(dim=1) * 2.0 + 3.0
+        return utmos_head(params, feats, lstm=lstm).mean(dim=1) * 2.0 + 3.0
     frame_lengths = out["frame_lengths"]
-    frame_scores = utmos_head(params, feats, frame_lengths)
+    frame_scores = utmos_head(params, feats, frame_lengths, lstm)
     valid = (torch.arange(feats.shape[1], device=feats.device)[None, :] < frame_lengths[:, None]).to(feats.dtype)
     mean = (frame_scores * valid).sum(dim=1) / torch.clamp(valid.sum(dim=1), min=1.0)
     return mean * 2.0 + 3.0
@@ -187,7 +219,9 @@ def load_utmos_params(ckpt_path: str, cfg: UTMOSConfig = None) -> dict:
 
 class UTMOSScorer:
     """Scores one waveform at a time (the tools/utmos CLI's backend), padded
-    to a power-of-two-second bucket with the padding left out of the mean."""
+    to a power-of-two-second bucket with the padding left out of the mean;
+    ``program``: ``utmos_forward`` on the weights and the scorer's
+    ``BiLSTM``, one program per bucket."""
 
     def __init__(self, ckpt_path: str = None, params: dict = None, cfg: UTMOSConfig = None, device=None,
                  precision: str = "highest"):
@@ -199,6 +233,11 @@ class UTMOSScorer:
             params, cfg = load_utmos_checkpoint(ckpt_path, cfg)
         self.cfg = cfg or UTMOSConfig()
         self.params = tree_map(lambda t: t.to(self.device), params)
+        self.lstm = BiLSTM(self.params["lstm"])
+        self.program = aot.CapturedProgram(self._forward, "utmos")
+
+    def _forward(self, wav: torch.Tensor, lengths: torch.Tensor) -> dict:
+        return {"score": utmos_forward(self.cfg, self.params, wav, lengths, self.lstm)}
 
     @torch.no_grad()
     def score(self, wav: np.ndarray, sample_rate: int = 16000) -> float:
@@ -209,6 +248,6 @@ class UTMOSScorer:
         padded = np.zeros((1, power_of_two_bucket(n)), np.float32)
         padded[0, :n] = wav
         with f32_precision(self.precision):
-            out = utmos_forward(self.cfg, self.params, torch.from_numpy(padded).to(self.device),
-                                torch.tensor([max(n, 400)], device=self.device))
-        return float(out[0])
+            out = self.program(torch.from_numpy(padded).to(self.device),
+                               torch.tensor([max(n, 400)], device=self.device))
+        return float(out["score"][0])

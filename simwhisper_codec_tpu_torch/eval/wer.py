@@ -5,7 +5,10 @@ Counterpart of ``simwhisper_codec_tpu/eval/wer.py`` (reference
 unicode / tag normalization, the DP edit-distance ``Calculator`` :97-227).
 The text pipeline is a copy; the HuBERT-large tower runs on
 ``models/ssl.py`` with its CTC head, and its weights are read from a
-Hugging Face model directory by ``utils/hf_dir.py``.
+Hugging Face model directory by ``utils/hf_dir.py``.  As the JAX
+``CTCTranscriber`` jits ``ctc_logits`` once per padded length,
+``CTCTranscriber.program`` runs it as a ``utils/aot.py`` program: a CUDA
+graph per length bucket on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from torch.nn import functional as F
 
 from simwhisper_codec_tpu_torch.models.codec import f32_precision, resolve_device
 from simwhisper_codec_tpu_torch.models.ssl import hubert_large_ft_config, power_of_two_bucket, ssl_forward, tree_map
+from simwhisper_codec_tpu_torch.utils import aot
 from simwhisper_codec_tpu_torch.utils.hf_dir import have_hf_ctc_dir, read_hf_ctc_dir
 
 # Exact behavioral parity with the reference text pipeline
@@ -262,7 +266,8 @@ def load_hf_ctc_params(model_dir: str, cfg=None):
 class CTCTranscriber:
     """Greedy CTC ASR (calculate_wer.py:269-374 semantics), one utterance a
     call, padded to a power-of-two-second bucket (16000 * 2^k samples) with
-    masked statistics, so a padded run equals the exact-length one."""
+    masked statistics, so a padded run equals the exact-length one.
+    ``program``: ``ctc_logits`` on the weights, one program per bucket."""
 
     def __init__(self, model_dir: str = None, device=None, params: dict = None, cfg=None,
                  vocab: Dict[int, str] = None, do_normalize: bool = True, precision: str = "highest"):
@@ -278,6 +283,11 @@ class CTCTranscriber:
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.vocab = vocab or {}
         self.do_normalize = do_normalize
+        self.program = aot.CapturedProgram(self._forward, "ctc_logits")
+
+    def _forward(self, wav: torch.Tensor, lengths: torch.Tensor) -> dict:
+        logits, frame_lengths = ctc_logits(self.cfg, self.params, wav, lengths)
+        return {"logits": logits, "frame_lengths": frame_lengths}
 
     def logits(self, wav: np.ndarray):
         """(T_valid, V) logits of one 16 kHz waveform."""
@@ -288,9 +298,8 @@ class CTCTranscriber:
         padded = np.zeros((1, power_of_two_bucket(n)), np.float32)
         padded[0, : len(wav)] = wav
         with torch.no_grad(), f32_precision(self.precision):
-            logits, frame_lengths = ctc_logits(self.cfg, self.params, torch.from_numpy(padded).to(self.device),
-                                               torch.tensor([n], device=self.device))
-        return logits[0, : int(frame_lengths[0])]
+            out = self.program(torch.from_numpy(padded).to(self.device), torch.tensor([n], device=self.device))
+        return out["logits"][0, : int(out["frame_lengths"][0])]
 
     def transcribe(self, wav: np.ndarray, sample_rate: int = 16000) -> str:
         if sample_rate != 16000:

@@ -7,7 +7,10 @@ the last hidden state), save one ``.npy`` of shape [T, 1, D] an utterance.
 ``FeatureExtractor`` runs the Whisper-style acoustic encoder over one padded
 30 s window (E1); ``HubertFeatureExtractor`` runs HuBERT-base on a
 power-of-two-second bucket (E2).  Both run in f32 with TF32 off and dense
-attention, as the JAX extractors run at ``HIGHEST``.  A fingerprint file of
+attention, as the JAX extractors run at ``HIGHEST``; each runs its forward
+as a ``utils/aot.py`` program (``program``: a CUDA graph per input shape on
+the card: the one 30 s window, or each bucket), the twin of the JAX
+extractors' ``jax.jit``.  A fingerprint file of
 the manifest, the layer and the extractor's class makes a second call a
 no-op; a file that fails is reported and skipped.
 
@@ -41,6 +44,7 @@ from simwhisper_codec_tpu_torch.models.ssl import (
 )
 from simwhisper_codec_tpu_torch.models.transformer import Encoder, init_transformer
 from simwhisper_codec_tpu_torch.ops.mel import MelConstants, log_mel, mel_lengths
+from simwhisper_codec_tpu_torch.utils import aot
 from simwhisper_codec_tpu_torch.utils.audio_io import load_audio
 from simwhisper_codec_tpu_torch.utils.hf_dir import SAFETENSORS, TORCH_BIN, read_state_dict
 from simwhisper_codec_tpu_torch.utils.ssl_checkpoint import convert_hf_ssl
@@ -57,6 +61,13 @@ class FeatureExtractor:
         self.mel_consts = MelConstants(self.fe_cfg).to(self.device)
         self.encoder = encoder.to(self.device).eval()
         self.layer_id = layer_id
+        self.program = aot.CapturedProgram(self._forward, "hidden_states")
+
+    def _forward(self, wav: torch.Tensor, lengths: torch.Tensor) -> dict:
+        feats = log_mel(self.mel_consts, wav)
+        lens = mel_lengths(lengths, self.fe_cfg.hop_length, self.mel_consts.n_frames)
+        _, out_len, states = self.encoder(feats, lens, output_hidden_states=True)
+        return {"features": states[self.layer_id][0], "length": out_len[0]}
 
     def extract(self, wav: np.ndarray) -> np.ndarray:
         """wav (S,) -> features (T, d_model) of the configured layer."""
@@ -65,11 +76,8 @@ class FeatureExtractor:
         padded = np.zeros((1, n), np.float32)
         padded[0, :length] = wav[:length]
         with torch.no_grad(), f32_precision("highest"):
-            feats = log_mel(self.mel_consts, torch.from_numpy(padded).to(self.device))
-            lens = mel_lengths(torch.tensor([length], device=self.device), self.fe_cfg.hop_length,
-                               self.mel_consts.n_frames)
-            _, out_len, states = self.encoder(feats, lens, output_hidden_states=True)
-        return states[self.layer_id][0, : int(out_len[0])].cpu().numpy()
+            out = self.program(torch.from_numpy(padded).to(self.device), torch.tensor([length], device=self.device))
+        return out["features"][: int(out["length"])].cpu().numpy()
 
 
 def hubert_params_from_dir(path, cfg) -> dict:
@@ -100,6 +108,11 @@ class HubertFeatureExtractor:
                       else hubert_params_from_dir(model_name, self.cfg))
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.layer_id = layer_id
+        self.program = aot.CapturedProgram(self._forward, "hubert_features")
+
+    def _forward(self, wav: torch.Tensor, lengths: torch.Tensor) -> dict:
+        out = ssl_forward(self.cfg, self.params, wav, lengths)
+        return {"features": out["hidden_states"][self.layer_id][0], "length": out["frame_lengths"][0]}
 
     def extract(self, wav: np.ndarray) -> np.ndarray:
         """wav (S,) -> features (T, d) of the configured layer (50 Hz)."""
@@ -107,9 +120,8 @@ class HubertFeatureExtractor:
         padded = np.zeros((1, power_of_two_bucket(n)), np.float32)
         padded[0, :n] = wav
         with torch.no_grad(), f32_precision("highest"):
-            out = ssl_forward(self.cfg, self.params, torch.from_numpy(padded).to(self.device),
-                              torch.tensor([n], device=self.device))
-        return out["hidden_states"][self.layer_id][0, : int(out["frame_lengths"][0])].cpu().numpy()
+            out = self.program(torch.from_numpy(padded).to(self.device), torch.tensor([n], device=self.device))
+        return out["features"][: int(out["length"])].cpu().numpy()
 
 
 def extract_manifest(manifest_path: str, out_dir: str, extractor, sample_rate: int = 16000) -> None:

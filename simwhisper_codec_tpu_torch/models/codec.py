@@ -240,20 +240,40 @@ def serving_program(model: "SimWhisperCodec", mode: str, direction: str, pool: a
 
 
 @contextlib.contextmanager
-def f32_precision(precision: str = "highest"):
+def f32_precision(precision: str = "highest", deterministic: Optional[bool] = None):
     """TF32 for float32 matmuls and cuDNN convolutions inside the block:
     off for ``highest`` (the counterpart of ``Precision.HIGHEST``), on for
-    ``default``.  cuDNN's ``deterministic`` and ``benchmark`` flags keep
-    their values; every flag is restored after the block."""
+    ``default``.  ``deterministic``: cuDNN's deterministic flag inside the
+    block (None keeps its value); the ``benchmark`` flag keeps its value;
+    every flag is restored after the block."""
     allow = precision == "default"
+    cudnn = torch.backends.cudnn
+    det = cudnn.deterministic if deterministic is None else deterministic
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = allow
     try:
-        with torch.backends.cudnn.flags(enabled=True, benchmark=torch.backends.cudnn.benchmark,
-                                        deterministic=torch.backends.cudnn.deterministic, allow_tf32=allow):
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark, deterministic=det, allow_tf32=allow):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def mode_deterministic(mode: str) -> Optional[bool]:
+    """``f32_precision``'s ``deterministic`` for ``mode``'s programs: True in
+    parity, whose waveforms must be the same from run to run (the decoder's
+    f32 transposed convolutions are not, otherwise), as the JAX package's
+    on XLA are; None (the caller's flag) in the fast modes."""
+    return True if mode == "parity" else None
+
+
+def model_groups_capturable(model: nn.Module) -> bool:
+    """Whether ``model``'s programs can be captured: no layer holds a model
+    group (``parallel.mesh.shard_model``), or every group is NCCL's, whose
+    collectives a CUDA graph records; gloo's run on the host and cannot be."""
+    import torch.distributed as dist
+
+    groups = {id(g): g for m in model.modules() for g in [getattr(m, "model_group", None)] if g is not None}
+    return all(isinstance(g, dist.ProcessGroup) and dist.get_backend(g) == "nccl" for g in groups.values())
 
 
 def resolve_device(device=None) -> torch.device:
@@ -288,9 +308,11 @@ class AudioCodec:
         are built and loaded on the card (``ops._cuda.use_aot_dir``).
 
         ``tokenize`` and ``detokenize`` run as ``utils.aot.CapturedProgram``s
-        sharing one graph memory pool; a model sharded by
-        ``parallel.mesh.shard_model`` (layers holding a ``model_group``)
-        runs them eagerly, since its collectives cannot be captured."""
+        sharing one graph memory pool, in parity mode with cuDNN's
+        deterministic algorithms (``mode_deterministic``); a model sharded
+        by ``parallel.mesh.shard_model`` (layers holding a ``model_group``)
+        is captured when its groups are NCCL's and runs them eagerly over
+        gloo, whose collectives cannot be captured."""
         if wire not in WIRES:
             raise ValueError(f"wire must be one of {WIRES}, got {wire!r}")
         if precision not in PRECISIONS:
@@ -299,6 +321,7 @@ class AudioCodec:
         self.mode = mode
         self.wire = wire
         self.precision = precision if mode == "parity" else "default"
+        self.deterministic = mode_deterministic(mode)
         self.device = resolve_device(device)
         # transfer granularity of the int16 encode wire: the host pads only to
         # the next bucket, the device pads to the chunk
@@ -316,12 +339,13 @@ class AudioCodec:
         self.aot_dir = aot_dir
         if aot_dir is not None and self.device.type == "cuda":
             _cuda.use_aot_dir(aot_dir)
-        sharded = any(getattr(m, "model_group", None) is not None for m in self.model.modules())
-        if sharded:
-            logger.info("the model is sharded over a model group: tokenize and detokenize run eagerly")
+        capture = model_groups_capturable(self.model)
+        if not capture:
+            logger.info("the model is sharded over a model group that is not NCCL's: tokenize and detokenize "
+                        "run eagerly")
         pool = aot.GraphPool()
         self._tokenize, self._detokenize = (
-            serving_program(self.model, mode, direction, pool, attn_impl, vocos_impl, capture=not sharded)
+            serving_program(self.model, mode, direction, pool, attn_impl, vocos_impl, capture=capture)
             for direction in ("tokenize", "detokenize"))
 
     @property
@@ -371,7 +395,7 @@ class AudioCodec:
         if wav_t.dtype == torch.int16:
             wav_t = F.pad(wav_t.to(torch.float32) * (1.0 / 32768.0), (0, n - target))
         len_t = torch.from_numpy(input_lengths[rows].astype(np.int64)).to(self.device)
-        with f32_precision(self.precision):
+        with f32_precision(self.precision, self.deterministic):
             out = self._tokenize(wav_t, len_t)
         out = {k: dist_ctx.all_gather_rows(self._dist, v, 1 if k == "codes" else 0) for k, v in out.items()}
         if bp != b:  # drop batch-padding rows
@@ -399,7 +423,7 @@ class AudioCodec:
         codes_t = torch.from_numpy(np.ascontiguousarray(codes[:, rows], np.int32)).to(self.device)
         len_t = torch.from_numpy(codes_lengths[rows].astype(np.int64)).to(self.device)
         width_t = torch.full((), width, dtype=torch.int32, device=self.device)  # a fill, not a host copy
-        with f32_precision(self.precision):
+        with f32_precision(self.precision, self.deterministic):
             out = self._detokenize(codes_t, len_t, width_t)
         out = {k: dist_ctx.all_gather_rows(self._dist, v) for k, v in out.items()}
         if self.wire == "pcm16":

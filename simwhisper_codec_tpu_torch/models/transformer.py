@@ -14,9 +14,11 @@ before the value product); on f32 activations (parity mode) the two run the
 f32 cores of ``csrc/attn_f32.cu``.  ``packed`` and ``chunked`` are the JAX
 package's two XLA impls in plain PyTorch (key-side bias, scores in f32 or,
 with ``:bf16``, in bf16); ``parse_attn_impl`` reads the JAX spellings.  FFN
-impls: ``dense`` (exact GELU), ``fused`` (``csrc/ln_ffn.cu``) and
-``int8-fused`` (``csrc/ln_ffn_int8.cu``; needs
-``ops.quant.quantize_stacked_ffn``).
+impls: ``dense`` (exact GELU), ``fused`` (``csrc/ln_ffn.cu``),
+``int8-fused`` (``csrc/ln_ffn_int8.cu``) and ``int8``, the JAX package's
+XLA int8 FFN (``ops.quant.int8_dynamic_matmul`` twice, exact GELU in
+between, rounded to bf16; no hand kernel); both int8 impls need
+``ops.quant.quantize_stacked_ffn``.
 
 Under tensor parallelism (``parallel/mesh.py::shard_model``) a layer holds
 its local heads and its slice of the FFN width and a ``model_group``: its
@@ -46,7 +48,7 @@ from simwhisper_codec_tpu_torch.parallel.mesh import copy_to_model, row_parallel
 ATTN_IMPLS = ("dense", "pflash", "flash", "packed", "chunked")
 # the spellings the JAX package accepts (codec.py's serving defaults among them)
 ATTN_SPELLINGS = ("dense", "flash", "pflash[:<block>]", "packed[:bf16]", "chunked[:<block_q>[:bf16]]")
-FFN_IMPLS = ("dense", "fused", "int8-fused")
+FFN_IMPLS = ("dense", "fused", "int8-fused", "int8")
 
 
 def parse_attn_impl(spec) -> Tuple[str, dict]:
@@ -257,6 +259,8 @@ class TransformerLayer(nn.Module):
 
             x = fused_ln_ffn_int8(xf, xf, ln.weight, ln.bias, self.fc1_q, self.fc1_s, self.fc1.bias,
                                   self.fc2_q, self.fc2_s, self.fc2.bias, eps=1e-5, group=group).reshape(b, t, d)
+        elif ffn_impl == "int8":
+            x = x + self.int8_ffn(xf).to(x.dtype).reshape(b, t, d)
         elif ffn_impl == "dense":
             h = copy_to_model(layer_norm(xf, ln), group)
             h = F.gelu(linear(h, self.fc1), approximate="none")
@@ -270,6 +274,21 @@ class TransformerLayer(nn.Module):
             clamp = torch.finfo(torch.bfloat16).max
             x = torch.clamp(x, -clamp, clamp)
         return x
+
+    def int8_ffn(self, xf: torch.Tensor) -> torch.Tensor:
+        """The XLA int8 FFN's update of rows ``xf`` (M, D), f32 (JAX
+        ``transformer.py:270-279``): LN in xf's dtype, ``int8_dynamic_matmul``
+        + fc1's bias in f32, exact GELU rounded to bf16, ``int8_dynamic_matmul``
+        + fc2's bias in f32.  Under a model group the second product takes
+        the group's row max and sums its s32 partials, exactly: every rank
+        returns the unsharded update."""
+        from simwhisper_codec_tpu_torch.ops.quant import int8_dynamic_matmul
+
+        group = self.model_group
+        h = copy_to_model(layer_norm(xf, self.final_layer_norm), group)
+        h = int8_dynamic_matmul(h, self.fc1_q, self.fc1_s) + self.fc1.bias.to(torch.float32)
+        h = F.gelu(h, approximate="none").to(torch.bfloat16)
+        return int8_dynamic_matmul(h, self.fc2_q, self.fc2_s, group) + self.fc2.bias.to(torch.float32)
 
 
 def run_layers(layers: nn.ModuleList, x, lengths, attn_impl: str, ffn_impl: str, collect: bool = False):

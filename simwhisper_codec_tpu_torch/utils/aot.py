@@ -1,5 +1,6 @@
-"""Compiled programs: each codec direction, and each training step, captured
-once per input signature as a CUDA graph.
+"""Compiled programs: each codec direction, each evaluation tower and
+feature extractor, and each training step, captured once per input
+signature as a CUDA graph.
 
 Counterpart of ``simwhisper_codec_tpu/utils/aot.py`` (``warm_jit``) and of
 the ``jax.jit`` programs of the JAX ``AudioCodec`` and trainers: there each
@@ -33,8 +34,8 @@ count).  A call therefore counts the same launches eagerly, captured or
 replayed.
 
 On the CPU (what the tests run) and for a program made with
-``capture=False`` (a model sharded by ``parallel/mesh.py``: its gloo
-collectives cannot be captured) the signatures are counted the same way,
+``capture=False`` (a model sharded by ``parallel/mesh.py`` over gloo, whose
+collectives run on the host; NCCL's are captured) the signatures are counted the same way,
 as ``jax.jit`` traces on the CPU too, and the function runs eagerly.
 Inside ``eager()``, the counterpart of ``jax.disable_jit()``, every program
 runs its function eagerly and counts nothing: checks that must see the

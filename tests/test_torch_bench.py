@@ -165,3 +165,57 @@ def test_without_cuda_main_exits_3(monkeypatch, capsys, argv):
     out = capsys.readouterr().out
     assert exit_.value.code == 3 and len(out.splitlines()) == 1 and "--device cpu" in out
     assert not out.startswith("{")
+
+
+@pytest.mark.parametrize("value,want", [(None, "fused"), ("", "fused"), ("1", "fused"), ("dw", "fused-dw")])
+def test_fused_vocos_knob(monkeypatch, value, want):
+    """``SIMWHISPER_FUSED_VOCOS``: unset (or empty) and ``1`` keep the fused
+    chain, ``dw`` runs B4; ``dw`` also builds B4's library."""
+    if value is None:
+        monkeypatch.delenv("SIMWHISPER_FUSED_VOCOS", raising=False)
+    else:
+        monkeypatch.setenv("SIMWHISPER_FUSED_VOCOS", value)
+    assert bench.fused_vocos_impl() == want
+    assert ("convnext_dw" in bench.kernel_sources(want)) == (want == "fused-dw")
+    assert set(bench.KERNEL_SOURCES) <= set(bench.kernel_sources(want))
+
+
+@pytest.mark.parametrize("value", ["0", "true", "DW", "fused-dw"])
+def test_fused_vocos_knob_refuses_other_values(monkeypatch, capsys, value):
+    """Any other value raises before anything runs (the JAX bench would take
+    any non-empty string as on)."""
+    monkeypatch.setenv("SIMWHISPER_FUSED_VOCOS", value)
+    monkeypatch.setattr(bench, "run", lambda *a, **k: pytest.fail("the bench ran"))
+    with pytest.raises(ValueError, match=repr(value)):
+        bench.main(["--device", "cpu"])
+    assert capsys.readouterr().out == ""
+
+
+def test_dw_knob_reaches_the_bf16_detokenize(monkeypatch, bench_model):
+    """With ``dw`` the bench passes ``fused-dw`` to its ``detok`` program only
+    (``mode_programs("fast", vocos_impl="fused-dw")``'s keywords); the int8
+    programs keep the int8 Vocos; the round trip equals ``AudioCodec(mode="fast",
+    vocos_impl="fused-dw")``'s bit for bit, and its codes are the fused bench's."""
+    seen = {}
+    monkeypatch.setenv("SIMWHISPER_FUSED_VOCOS", "dw")
+    monkeypatch.setattr(bench, "CodecConfig", lambda: CFG)
+    monkeypatch.setattr(bench, "run", lambda cfg, device, **kw: seen.update(kw) or {})
+    bench.main(["--device", "cpu"])
+    assert seen["vocos_impl"] == "fused-dw"
+    model, progs, (wav, lengths, frame_valid) = bench_model
+    dw = bench.programs(model, "fused-dw")
+    assert dw["detok"].fn.keywords == tcodec.mode_programs("fast", vocos_impl="fused-dw")[1]
+    assert dw["detok"].fn.keywords["vocos_impl"] == "fused-dw"
+    for name in ("tok", "detok8", "tok8"):
+        assert dw[name].fn.keywords == progs[name].fn.keywords
+    assert dw["detok8"].fn.keywords["vocos_impl"] == "int8"
+    with torch.no_grad(), tcodec.f32_precision("default"):
+        t = dw["tok"](wav, lengths)
+        y = dw["detok"](t["codes"], t["codes_lengths"], frame_valid)["y"]
+        fused_codes = progs["tok"](wav, lengths)["codes"]
+    assert torch.equal(t["codes"], fused_codes)
+    codec = tcodec.AudioCodec(CFG, model, batch_size=BATCH, mode="fast", vocos_impl="fused-dw", device="cpu")
+    want = codec.inference_tokenize(wav.numpy(), lengths.numpy())
+    assert torch.equal(want["codes"], t["codes"])
+    want_y = codec.inference_detokenize(want["codes"].numpy(), want["codes_lengths"].numpy())["y"]
+    assert torch.equal(y, want_y)

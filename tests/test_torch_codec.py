@@ -259,3 +259,79 @@ def test_f32_precision_flags(precision):
             assert (matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, cudnn.enabled) == before
     finally:
         matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, cudnn.enabled = saved
+
+
+class _Seen(Exception):
+    """Stops a program after it recorded the flags it was called under."""
+
+
+@pytest.mark.parametrize("mode", tcodec.MODES)
+@pytest.mark.parametrize("caller", [False, True])
+def test_parity_programs_pin_deterministic_cudnn(pair, mode, caller):
+    """Parity's programs run with cuDNN's deterministic algorithms whatever
+    the caller's flag (its f32 transposed convolutions repeat themselves
+    then); the fast modes run with the caller's.  The flag is part of each
+    program's signature, so capture and replay see the same one.  Each
+    program records the flag it is called under, through ``AudioCodec``'s
+    entry points, and stops there."""
+    cudnn = torch.backends.cudnn
+    seen = []
+    codec = tcodec.AudioCodec(TINY, pair[1], batch_size=1, mode=mode, device="cpu")
+
+    def record(*args):
+        seen.append(cudnn.deterministic)
+        raise _Seen
+
+    for program in (codec._tokenize, codec._detokenize):
+        program.fn = record
+    prev = cudnn.deterministic
+    cudnn.deterministic = caller
+    try:
+        with pytest.raises(_Seen):
+            codec.inference_tokenize(np.zeros((1, SR), np.float32), np.array([SR]))
+        with pytest.raises(_Seen):
+            codec.inference_detokenize(np.zeros((TINY.quantizer.num_groups, 1, 12), np.int32), np.array([12]))
+    finally:
+        cudnn.deterministic = prev
+    want = True if mode == "parity" else caller
+    assert codec.deterministic is (True if mode == "parity" else None) and seen == [want, want]
+    for program in (codec._tokenize, codec._detokenize):
+        (sig,) = program._programs
+        assert sig[-1][2] is want  # aot._flags(): cuDNN's deterministic flag
+
+
+def test_f32_precision_sets_deterministic_when_asked():
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic
+    try:
+        for caller in (False, True):
+            cudnn.deterministic = caller
+            for det in (False, True):
+                with tcodec.f32_precision("highest", det):
+                    assert cudnn.deterministic is det
+                assert cudnn.deterministic is caller
+    finally:
+        cudnn.deterministic = prev
+
+
+def test_nccl_model_groups_are_captured_gloo_ones_not(pair, monkeypatch, tmp_path):
+    """A sharded model's programs are captured when its model group's backend
+    is NCCL (stubbed here: the CPU has none) and run eagerly over gloo."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        group = dist.new_group([0])
+        model = port_model(pair[0])
+        for layer in model.acoustic_decoder.layers:
+            layer.model_group = group
+        assert not tcodec.model_groups_capturable(model)
+        gloo = tcodec.AudioCodec(TINY, model, batch_size=1, mode="parity", device="cpu")
+        assert not gloo._tokenize._capture and not gloo._detokenize._capture
+        monkeypatch.setattr(dist, "get_backend", lambda g=None: "nccl" if g is group else "gloo")
+        assert tcodec.model_groups_capturable(model)
+        nccl = tcodec.AudioCodec(TINY, model, batch_size=1, mode="parity", device="cpu")
+        assert nccl._tokenize._capture and nccl._detokenize._capture
+        assert tcodec.model_groups_capturable(port_model(pair[0]))  # no group: captured
+    finally:
+        dist.destroy_process_group()

@@ -92,6 +92,7 @@ RUNS = {
     "flash-dw": (dict(f32, attn_impl="flash", ffn_impl="fused"), {"vocos_impl": "fused-dw"}),
     "chunked": (dict(f32, attn_impl="chunked:96"), {}),
     "packed": (dict(f32, attn_impl="packed"), {}),
+    "xla-int8": (dict(f32, attn_impl="packed", ffn_impl="int8"), {}),
 }
 
 

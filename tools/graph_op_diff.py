@@ -55,11 +55,11 @@ def differing(a, b) -> list:
     return [i for i, (x, y) in enumerate(zip(a, b)) if x[0] == y[0] and x[2] != y[2]]
 
 
-def diff(torch, name, fn, args, precision) -> int:
+def diff(torch, name, fn, args, precision, deterministic) -> int:
     """Eager against captured-and-replayed sums of ``fn(*args)``; returns the number of ops that differ."""
     from simwhisper_codec_tpu_torch.models.codec import f32_precision
 
-    with torch.no_grad(), f32_precision(precision):
+    with torch.no_grad(), f32_precision(precision, deterministic):
         eager, again = op_sums(torch), op_sums(torch)
         with eager:
             fn(*args)
@@ -113,12 +113,13 @@ def main() -> int:
     wav = np.random.default_rng(0).standard_normal((8, cfg.chunk_samples)).astype(np.float32) * 0.1
     wav_t = torch.from_numpy(wav).cuda()
     lens = torch.full((8,), cfg.chunk_samples, device="cuda")
-    diff(torch, f"{args.mode} tokenize", codec._tokenize.fn, [wav_t, lens], codec.precision)
-    with torch.no_grad(), f32_precision(codec.precision):
+    flags = (codec.precision, codec.deterministic)  # as the codec runs its programs
+    diff(torch, f"{args.mode} tokenize", codec._tokenize.fn, [wav_t, lens], *flags)
+    with torch.no_grad(), f32_precision(*flags):
         tok = codec._tokenize.fn(wav_t, lens)
     width = torch.full((), cfg.code_frames, dtype=torch.int32, device="cuda")
     diff(torch, f"{args.mode} detokenize", codec._detokenize.fn, [tok["codes"], tok["codes_lengths"], width],
-         codec.precision)
+         *flags)
     return 0
 
 

@@ -4,8 +4,9 @@
 Builds each tower at its published width with random weights from a fixed
 seed (HuBERT-large CTC for WER, wav2vec2-base + BiLSTM for UTMOS,
 WavLM-large + ECAPA-TDNN for speaker similarity), warms it on one
-utterance, then traces one call on a 6 s utterance padded to its 8 s bucket
-(one utterance a call, as the report's wrappers run them) with
+utterance (which captures its program, ``utils/aot.py``), then traces one
+call, a replay, on a 6 s utterance padded to its 8 s bucket (one utterance
+a call, as the report's wrappers run them) with
 ``torch.profiler``, with TF32 off (the default) and on.  Prints per tower
 and setting: host wall time of an untraced call and of the traced call,
 summed device time of the traced call, the device's idle share over the
@@ -144,7 +145,7 @@ def main() -> int:
         fn = getattr(tower, calls[name])
         for precision in ("highest", "default"):
             tower.precision = precision
-            fn(wav)  # warm-up (cuDNN plans, the relative-position buckets)
+            fn(wav)  # warm-up: captures this precision's program (cuDNN plans, the relative-position buckets)
             r = profile_call(torch, lambda: fn(wav))
             result["towers"][f"{name}/{precision}"] = r
             print(f"[{name}/{'TF32 off' if precision == 'highest' else 'TF32 on'}] wall {r['wall_ms']:.3f} ms "
