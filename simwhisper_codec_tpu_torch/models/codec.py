@@ -68,6 +68,7 @@ from simwhisper_codec_tpu_torch.ops.quant import quantize_stacked_convnext, quan
 from simwhisper_codec_tpu_torch.ops.snake import AliasFreeConstants
 from simwhisper_codec_tpu_torch.parallel import dist as dist_ctx
 from simwhisper_codec_tpu_torch.utils import aot
+from simwhisper_codec_tpu_torch.utils.profiling import annotate
 from simwhisper_codec_tpu_torch.utils.audio_io import to_pcm16
 
 logger = logging.getLogger(__name__)
@@ -374,32 +375,36 @@ class AudioCodec:
         the next wire bucket, and is dequantised (x / 32768, exact in f32)
         and padded to the chunk on the device.  On the ``pcm16`` wire float
         input is first quantised to int16 on the host."""
-        wav = np.asarray(wav)
-        if self.wire == "pcm16" and wav.dtype != np.int16:
-            wav = to_pcm16(wav)
-        if wav.dtype != np.int16:
-            wav = wav.astype(np.float32)
-        b, t = wav.shape
-        n = self.cfg.chunk_samples
-        target = n
-        if wav.dtype == np.int16:
-            target = min(n, -(-min(t, n) // self._wire_bucket) * self._wire_bucket)
-        wav = np.pad(wav, ((0, 0), (0, target - t))) if t < target else wav[:, :target]
-        input_lengths = np.asarray(input_lengths)
-        bp = self._pad_batch_dim(b)
-        if bp != b:
-            wav = np.pad(wav, ((0, bp - b), (0, 0)))
-            input_lengths = np.pad(input_lengths, (0, bp - b))
-        rows = self._dist.rows(bp)
-        wav_t = torch.from_numpy(np.ascontiguousarray(wav[rows])).to(self.device)
-        if wav_t.dtype == torch.int16:
-            wav_t = F.pad(wav_t.to(torch.float32) * (1.0 / 32768.0), (0, n - target))
-        len_t = torch.from_numpy(input_lengths[rows].astype(np.int64)).to(self.device)
-        with f32_precision(self.precision, self.deterministic):
+        with annotate("codec.tokenize.host", step="stage"):
+            wav = np.asarray(wav)
+            if self.wire == "pcm16" and wav.dtype != np.int16:
+                wav = to_pcm16(wav)
+            if wav.dtype != np.int16:
+                wav = wav.astype(np.float32)
+            b, t = wav.shape
+            n = self.cfg.chunk_samples
+            target = n
+            if wav.dtype == np.int16:
+                target = min(n, -(-min(t, n) // self._wire_bucket) * self._wire_bucket)
+            wav = np.pad(wav, ((0, 0), (0, target - t))) if t < target else wav[:, :target]
+            input_lengths = np.asarray(input_lengths)
+            bp = self._pad_batch_dim(b)
+            if bp != b:
+                wav = np.pad(wav, ((0, bp - b), (0, 0)))
+                input_lengths = np.pad(input_lengths, (0, bp - b))
+            rows = self._dist.rows(bp)
+            wav_t = torch.from_numpy(np.ascontiguousarray(wav[rows])).to(self.device)
+            if wav_t.dtype == torch.int16:
+                wav_t = F.pad(wav_t.to(torch.float32) * (1.0 / 32768.0), (0, n - target))
+            len_t = torch.from_numpy(input_lengths[rows].astype(np.int64)).to(self.device)
+        with annotate("codec.tokenize.program", rows=wav_t.shape[0], samples=wav_t.shape[1]) as attrs, \
+                f32_precision(self.precision, self.deterministic):
             out = self._tokenize(wav_t, len_t)
-        out = {k: dist_ctx.all_gather_rows(self._dist, v, 1 if k == "codes" else 0) for k, v in out.items()}
-        if bp != b:  # drop batch-padding rows
-            out = {"zq": out["zq"][:b], "codes": out["codes"][:, :b], "codes_lengths": out["codes_lengths"][:b]}
+            attrs["source"] = self._tokenize.source
+        with annotate("codec.tokenize.host", step="unpack"):
+            out = {k: dist_ctx.all_gather_rows(self._dist, v, 1 if k == "codes" else 0) for k, v in out.items()}
+            if bp != b:  # drop batch-padding rows
+                out = {"zq": out["zq"][:b], "codes": out["codes"][:, :b], "codes_lengths": out["codes_lengths"][:b]}
         return out
 
     @torch.no_grad()
@@ -409,28 +414,32 @@ class AudioCodec:
 
         On the ``pcm16`` wire the waveform is quantised to int16 on the
         device and cut there to its first ``out_samples`` samples."""
-        g, b, t = codes.shape
-        n = self.cfg.code_frames
-        width = chunk_width if chunk_width is not None else t
-        if t < n:
-            codes = np.pad(codes, ((0, 0), (0, 0), (0, n - t)))
-        codes_lengths = np.asarray(codes_lengths)
-        bp = self._pad_batch_dim(b)
-        if bp != b:
-            codes = np.pad(codes, ((0, 0), (0, bp - b), (0, 0)))
-            codes_lengths = np.pad(codes_lengths, (0, bp - b))
-        rows = self._dist.rows(bp)
-        codes_t = torch.from_numpy(np.ascontiguousarray(codes[:, rows], np.int32)).to(self.device)
-        len_t = torch.from_numpy(codes_lengths[rows].astype(np.int64)).to(self.device)
-        width_t = torch.full((), width, dtype=torch.int32, device=self.device)  # a fill, not a host copy
-        with f32_precision(self.precision, self.deterministic):
+        with annotate("codec.detokenize.host", step="stage"):
+            g, b, t = codes.shape
+            n = self.cfg.code_frames
+            width = chunk_width if chunk_width is not None else t
+            if t < n:
+                codes = np.pad(codes, ((0, 0), (0, 0), (0, n - t)))
+            codes_lengths = np.asarray(codes_lengths)
+            bp = self._pad_batch_dim(b)
+            if bp != b:
+                codes = np.pad(codes, ((0, 0), (0, bp - b), (0, 0)))
+                codes_lengths = np.pad(codes_lengths, (0, bp - b))
+            rows = self._dist.rows(bp)
+            codes_t = torch.from_numpy(np.ascontiguousarray(codes[:, rows], np.int32)).to(self.device)
+            len_t = torch.from_numpy(codes_lengths[rows].astype(np.int64)).to(self.device)
+            width_t = torch.full((), width, dtype=torch.int32, device=self.device)  # a fill, not a host copy
+        with annotate("codec.detokenize.program", rows=codes_t.shape[1], frames=codes_t.shape[2]) as attrs, \
+                f32_precision(self.precision, self.deterministic):
             out = self._detokenize(codes_t, len_t, width_t)
-        out = {k: dist_ctx.all_gather_rows(self._dist, v) for k, v in out.items()}
-        if self.wire == "pcm16":
-            y = torch.clamp(out["y"].to(torch.float32) * 32768.0, -32768.0, 32767.0).to(torch.int16)
-            out = dict(out, y=y[:, :out_samples] if out_samples is not None else y)
-        if bp != b:
-            out = {"y": out["y"][:b], "output_length": out["output_length"][:b]}
+            attrs["source"] = self._detokenize.source
+        with annotate("codec.detokenize.host", step="unpack"):
+            out = {k: dist_ctx.all_gather_rows(self._dist, v) for k, v in out.items()}
+            if self.wire == "pcm16":
+                y = torch.clamp(out["y"].to(torch.float32) * 32768.0, -32768.0, 32767.0).to(torch.int16)
+                out = dict(out, y=y[:, :out_samples] if out_samples is not None else y)
+            if bp != b:
+                out = {"y": out["y"][:b], "output_length": out["output_length"][:b]}
         return out
 
     # -- chunked streaming (reference model.py:244-373) ------------------------
@@ -438,24 +447,33 @@ class AudioCodec:
     def encode(self, wav_list: List[np.ndarray], overlap_seconds: int = 10) -> dict:
         """List of 1-D waveforms (float, or int16 PCM read as int16 / 32768)
         -> {"codes_list": [(G, T_i) int32]}.  The batch ships as int16 on the
-        ``pcm16`` wire or when every item is int16; otherwise as float32."""
-        duration_seconds = self.max_audio_seconds - overlap_seconds
-        chunk_size = self.max_audio_seconds * self.input_sample_rate
-        duration_size = duration_seconds * self.input_sample_rate
-        code_duration_length = duration_size // self.encoder_downsample_rate
+        ``pcm16`` wire or when every item is int16; otherwise as float32.
 
-        batch_size = len(wav_list)
-        max_length = max(len(w) for w in wav_list)
-        input_lengths = np.array([len(w) for w in wav_list], np.int64)
-        wire16 = self.wire == "pcm16" or all(np.asarray(w).dtype == np.int16 for w in wav_list)
-        wav_tensor = np.zeros((batch_size, max_length), np.int16 if wire16 else np.float32)
-        for i, w in enumerate(wav_list):
-            w = np.asarray(w).reshape(-1)
-            if wire16 and w.dtype != np.int16:
-                w = to_pcm16(w)
-            elif not wire16 and w.dtype == np.int16:
-                w = w.astype(np.float32) / 32768.0
-            wav_tensor[i, : len(w)] = w
+        One ``codec.encode`` span a call (attrs ``rows``, ``chunks``), tiled by
+        ``codec.tokenize.host`` (``step``: pack / stage / unpack),
+        ``codec.tokenize.program`` and ``codec.tokenize.fetch`` spans."""
+        with annotate("codec.encode", rows=len(wav_list)) as attrs:
+            return self._encode(wav_list, overlap_seconds, attrs)
+
+    def _encode(self, wav_list: List[np.ndarray], overlap_seconds: int, attrs: dict) -> dict:
+        with annotate("codec.tokenize.host", step="pack"):
+            duration_seconds = self.max_audio_seconds - overlap_seconds
+            chunk_size = self.max_audio_seconds * self.input_sample_rate
+            duration_size = duration_seconds * self.input_sample_rate
+            code_duration_length = duration_size // self.encoder_downsample_rate
+
+            batch_size = len(wav_list)
+            max_length = max(len(w) for w in wav_list)
+            input_lengths = np.array([len(w) for w in wav_list], np.int64)
+            wire16 = self.wire == "pcm16" or all(np.asarray(w).dtype == np.int16 for w in wav_list)
+            wav_tensor = np.zeros((batch_size, max_length), np.int16 if wire16 else np.float32)
+            for i, w in enumerate(wav_list):
+                w = np.asarray(w).reshape(-1)
+                if wire16 and w.dtype != np.int16:
+                    w = to_pcm16(w)
+                elif not wire16 and w.dtype == np.int16:
+                    w = w.astype(np.float32) / 32768.0
+                wav_tensor[i, : len(w)] = w
 
         max_chunks = (max_length + duration_size - 1) // duration_size
         chunks_out = []
@@ -466,36 +484,49 @@ class AudioCodec:
             if chunk_lengths.max() == 0:
                 continue
             result = self.inference_tokenize(wav_tensor[:, start:end], chunk_lengths)
-            codes = result["codes"].cpu().numpy()
-            code_lens = result["codes_lengths"].cpu().numpy()
-            valid = np.clip(code_lens, 0, code_duration_length)
-            out = codes[:, :, :code_duration_length].copy()
-            t_idx = np.arange(code_duration_length)
-            out *= (t_idx[None, None, :] < valid[None, :, None]).astype(out.dtype)
-            chunks_out.append(out)
+            with annotate("codec.tokenize.fetch"):
+                codes = result["codes"].cpu().numpy()
+                code_lens = result["codes_lengths"].cpu().numpy()
+            with annotate("codec.tokenize.host", step="unpack"):
+                valid = np.clip(code_lens, 0, code_duration_length)
+                out = codes[:, :, :code_duration_length].copy()
+                t_idx = np.arange(code_duration_length)
+                out *= (t_idx[None, None, :] < valid[None, :, None]).astype(out.dtype)
+                chunks_out.append(out)
+        attrs["chunks"] = len(chunks_out)
 
-        if chunks_out:
-            codes_tensor = np.concatenate(chunks_out, axis=-1)
-            codes_list = [codes_tensor[:, i, : input_lengths[i] // self.encoder_downsample_rate]
-                          for i in range(batch_size)]
-        else:
-            codes_list = [np.zeros((self.num_groups, 0), np.int32) for _ in range(batch_size)]
+        with annotate("codec.tokenize.host", step="unpack"):
+            if chunks_out:
+                codes_tensor = np.concatenate(chunks_out, axis=-1)
+                codes_list = [codes_tensor[:, i, : input_lengths[i] // self.encoder_downsample_rate]
+                              for i in range(batch_size)]
+            else:
+                codes_list = [np.zeros((self.num_groups, 0), np.int32) for _ in range(batch_size)]
         return {"codes_list": codes_list}
 
     def decode(self, codes_list: List[np.ndarray], overlap_seconds: int = 10) -> dict:
         """List of (G, T_i) code arrays -> {"syn_wav_list": [(T_i * 1280,)]}: f32
-        waveforms, or int16 PCM on the ``pcm16`` wire."""
-        duration_seconds = self.max_audio_seconds - overlap_seconds
-        chunk_code_length = self.max_audio_seconds * self.input_sample_rate // self.encoder_downsample_rate
-        duration_code_length = duration_seconds * self.input_sample_rate // self.encoder_downsample_rate
-        duration_wav_length = duration_code_length * self.decoder_upsample_rate
+        waveforms, or int16 PCM on the ``pcm16`` wire.
 
-        batch_size = len(codes_list)
-        max_code_length = max(c.shape[-1] for c in codes_list)
-        code_lengths = np.array([c.shape[-1] for c in codes_list], np.int64)
-        codes_tensor = np.zeros((self.num_groups, batch_size, max_code_length), np.int32)
-        for i, c in enumerate(codes_list):
-            codes_tensor[:, i, : c.shape[-1]] = np.asarray(c)
+        One ``codec.decode`` span a call (attrs ``rows``, ``chunks``), tiled by
+        ``codec.detokenize.host`` (``step``: pack / stage / unpack),
+        ``codec.detokenize.program`` and ``codec.detokenize.fetch`` spans."""
+        with annotate("codec.decode", rows=len(codes_list)) as attrs:
+            return self._decode(codes_list, overlap_seconds, attrs)
+
+    def _decode(self, codes_list: List[np.ndarray], overlap_seconds: int, attrs: dict) -> dict:
+        with annotate("codec.detokenize.host", step="pack"):
+            duration_seconds = self.max_audio_seconds - overlap_seconds
+            chunk_code_length = self.max_audio_seconds * self.input_sample_rate // self.encoder_downsample_rate
+            duration_code_length = duration_seconds * self.input_sample_rate // self.encoder_downsample_rate
+            duration_wav_length = duration_code_length * self.decoder_upsample_rate
+
+            batch_size = len(codes_list)
+            max_code_length = max(c.shape[-1] for c in codes_list)
+            code_lengths = np.array([c.shape[-1] for c in codes_list], np.int64)
+            codes_tensor = np.zeros((self.num_groups, batch_size, max_code_length), np.int32)
+            for i, c in enumerate(codes_list):
+                codes_tensor[:, i, : c.shape[-1]] = np.asarray(c)
 
         max_chunks = (max_code_length + duration_code_length - 1) // duration_code_length
         wav_chunks = []
@@ -508,20 +539,24 @@ class AudioCodec:
             # only the first stride's worth of each chunk is kept
             result = self.inference_detokenize(codes_tensor[:, :, start:end], chunk_code_lengths,
                                                chunk_width=end - start, out_samples=duration_wav_length)
-            y = result["y"][:, :duration_wav_length]
-            wav = (y if y.dtype == torch.int16 else y.to(torch.float32)).cpu().numpy()
-            wav_lens = result["output_length"].cpu().numpy()
-            valid = np.clip(wav_lens, 0, duration_wav_length)
-            t_idx = np.arange(wav.shape[1])
-            wav_chunks.append(wav * (t_idx[None, :] < valid[:, None]).astype(wav.dtype))
+            with annotate("codec.detokenize.fetch"):
+                y = result["y"][:, :duration_wav_length]
+                wav = (y if y.dtype == torch.int16 else y.to(torch.float32)).cpu().numpy()
+                wav_lens = result["output_length"].cpu().numpy()
+            with annotate("codec.detokenize.host", step="unpack"):
+                valid = np.clip(wav_lens, 0, duration_wav_length)
+                t_idx = np.arange(wav.shape[1])
+                wav_chunks.append(wav * (t_idx[None, :] < valid[:, None]).astype(wav.dtype))
+        attrs["chunks"] = len(wav_chunks)
 
-        if wav_chunks:
-            wav_tensor = np.concatenate(wav_chunks, axis=-1)
-            syn_wav_list = [wav_tensor[i, : code_lengths[i] * self.decoder_upsample_rate]
-                            for i in range(batch_size)]
-        else:
-            out_dtype = np.int16 if self.wire == "pcm16" else np.float32
-            syn_wav_list = [np.zeros((0,), out_dtype) for _ in range(batch_size)]
+        with annotate("codec.detokenize.host", step="unpack"):
+            if wav_chunks:
+                wav_tensor = np.concatenate(wav_chunks, axis=-1)
+                syn_wav_list = [wav_tensor[i, : code_lengths[i] * self.decoder_upsample_rate]
+                                for i in range(batch_size)]
+            else:
+                out_dtype = np.int16 if self.wire == "pcm16" else np.float32
+                syn_wav_list = [np.zeros((0,), out_dtype) for _ in range(batch_size)]
         return {"syn_wav_list": syn_wav_list}
 
     @classmethod

@@ -8,7 +8,8 @@ Endpoints (application/octet-stream unless noted):
   POST /encode      raw 16 kHz mono f32 PCM -> int32 codes (G*T), header X-Code-Shape: "G,T"
   POST /decode      int32 codes + X-Code-Shape header -> f32 PCM
   POST /reconstruct f32 PCM -> f32 PCM (round trip)
-  GET  /healthz     JSON status and counters
+  GET  /healthz     JSON status and counters (served, rejected, batches: runner calls,
+                    a micro-batch's requests of one kind, queue_depth, audio_seconds)
 
 Overload: the micro-batch queue is bounded (--queue_depth); a full queue
 answers 503 with Retry-After.  Bodies above --max_body_mb answer 413 unread.
@@ -33,6 +34,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from simwhisper_codec_tpu_torch.utils import profiling
 from simwhisper_codec_tpu_torch.utils.audio_io import set_logging
 
 logger = logging.getLogger(__name__)
@@ -60,6 +62,12 @@ class MicroBatcher:
     At most ``queue_depth`` requests wait; ``submit`` raises
     :class:`Overloaded` at once on a full queue.  Counters are updated under
     a lock (handler threads and the batch thread both write them).
+
+    Spans (``utils.profiling``): the batch thread's time is tiled by
+    ``serve.wait`` (blocked on an empty queue), ``serve.collect`` (from the
+    first request to the window's close) and ``serve.batch`` (one a kind's
+    runner call, attrs ``kind`` and ``requests``); when a micro-batch starts
+    it closes one ``serve.queue`` span a request, from its submit to then.
     """
 
     def __init__(self, runner, max_batch: int = 8, window_ms: float = 5.0, queue_depth: int = 64):
@@ -70,6 +78,7 @@ class MicroBatcher:
         self._lock = threading.Lock()
         self.served = 0
         self.rejected = 0
+        self.batches = 0
         self.audio_seconds = 0.0
         threading.Thread(target=self._loop, daemon=True).start()
 
@@ -78,7 +87,8 @@ class MicroBatcher:
             self.audio_seconds += seconds
 
     def submit(self, kind: str, payload):
-        slot = {"kind": kind, "payload": payload, "done": threading.Event(), "result": None, "error": None}
+        slot = {"kind": kind, "payload": payload, "done": threading.Event(), "result": None, "error": None,
+                "submitted": profiling.clock_ns(), "profiled": profiling.profiler_enabled()}
         try:
             self.q.put_nowait(slot)
         except queue.Full:
@@ -92,22 +102,28 @@ class MicroBatcher:
 
     def _loop(self):
         while True:
-            batch = [self.q.get()]
-            deadline = time.monotonic() + self.window_s
-            while len(batch) < self.max_batch:
-                timeout = deadline - time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    batch.append(self.q.get(timeout=timeout))
-                except queue.Empty:
-                    break
+            with profiling.annotate("serve.wait"):
+                batch = [self.q.get()]
+            with profiling.annotate("serve.collect"):
+                deadline = time.monotonic() + self.window_s
+                while len(batch) < self.max_batch:
+                    timeout = deadline - time.monotonic()
+                    if timeout <= 0:
+                        break
+                    try:
+                        batch.append(self.q.get(timeout=timeout))
+                    except queue.Empty:
+                        break
+            started = profiling.clock_ns()
             by_kind: dict = {}
             for slot in batch:
+                profiling.record("serve.queue", slot["submitted"], started, slot["profiled"], kind=slot["kind"])
                 by_kind.setdefault(slot["kind"], []).append(slot)
             for kind, slots in by_kind.items():
                 try:
-                    for s, r in zip(slots, self.runner(kind, [s["payload"] for s in slots])):
+                    with profiling.annotate("serve.batch", kind=kind, requests=len(slots)):
+                        results = self.runner(kind, [s["payload"] for s in slots])
+                    for s, r in zip(slots, results):
                         s["result"] = r
                 except Exception as e:  # reported to each request of the batch
                     logger.exception("batch of %d %s requests failed", len(slots), kind)
@@ -118,10 +134,11 @@ class MicroBatcher:
                         s["done"].set()
             with self._lock:
                 self.served += len(batch)
+                self.batches += len(by_kind)
 
     def stats(self) -> dict:
         with self._lock:
-            return {"served": self.served, "rejected": self.rejected,
+            return {"served": self.served, "rejected": self.rejected, "batches": self.batches,
                     "queue_depth": self.q.qsize(), "audio_seconds": round(self.audio_seconds, 1)}
 
 
