@@ -5,18 +5,18 @@
 For each seed it runs the cell's loop for ``--seconds`` (set-up, window and
 check, as ``run.py`` does) in this one process and prints the program's
 compared numbers.  For each control seed it also prints the numbers of
+each side that the loop's ``controls(run, config) -> {side: numbers}``
+gives, read after the program's run on what it checked, and of the
+program's own lower-precision path (``program_control``: the loop run
+again on the same seed with the configuration's entries replaced by the
+ones it names), as the program's numbers are.
 
-- the control: the plain reference in the program's place with each
-  stage's product operands rounded one format below what the configuration
-  states (its ``control`` entry: fp8 for bf16, int4 for int8), run on the
-  same checked inputs (the encode inputs; its own codes decoded at the same
-  chunk widths; the served decode requests' codes at their micro-batch
-  widths) and compared with the exact reference; it launches no kernel;
-- each of the configuration's ``stage_controls``: the same with only the
-  named stages lowered;
-- the program's own lower-precision path (``program_control``: the loop run
-  again on the same seed with the configuration's ``mode`` replaced), as
-  the program's numbers are.
+The codec's loops give the control (``control``: the plain reference in the
+program's place with each stage's product operands rounded one format below
+what the configuration states, its ``control`` entry: fp8 for bf16, int4 for
+int8; it launches no kernel) and each of the configuration's
+``stage_controls`` (``control.<stage>``: only the named stages lowered), on
+the checked inputs, compared with the exact reference.
 
 Every line is JSON.
 """
@@ -32,45 +32,6 @@ import json  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
 from pathlib import Path  # noqa: E402
-
-import numpy as np  # noqa: E402
-
-
-def control_offline(run, exact, formats):
-    """The numbers of the reference with ``formats`` ({stage: format}) in the
-    program's place, on the program's checked utterances."""
-    import torch
-
-    from benchmark.loops.offline import Checked, check
-    from benchmark.reference import LowerPrecision, ReferenceCodec, float32_exact
-
-    ctrl = ReferenceCodec(run.gp, exact.p, LowerPrecision(formats))
-    overlap = run.mix["overlap_seconds"]
-    with torch.no_grad(), float32_exact():
-        codes = [c for c, _ in ctrl.encode([it.wav for it in run.checked], overlap)]
-        outs = ctrl.decode(codes, [it.batch_frames for it in run.checked], overlap)
-    items = [Checked(it.wav, c.astype(np.int32), y, it.batch_frames) for it, c, y in zip(run.checked, codes, outs)]
-    return dict(check(run.gp, run.seed, run.device, items, overlap, reference=exact), low_precision_launches=0.0)
-
-
-def control_serve(run, exact, formats):
-    import torch
-
-    from benchmark.loops.http_open_loop import check, checked_requests
-    from benchmark.reference import LowerPrecision, ReferenceCodec, float32_exact
-
-    res, rec = run.checked
-    ctrl = ReferenceCodec(run.gp, exact.p, LowerPrecision(formats))
-    enc, dec = checked_requests(run, res, rec)
-    dec = [d for d in dec if d[2] is not None]
-    overlap = run.mix["overlap_seconds"]
-    answers = {}
-    with torch.no_grad(), float32_exact():
-        for (i, _), (c, _) in zip(enc, ctrl.encode([w for _, w in enc], overlap)):
-            answers[f"ans_{i}"] = np.frombuffer(c.astype(np.int32).tobytes(), np.uint8)
-        for (i, _, _), y in zip(dec, ctrl.decode([c for _, c, _ in dec], [w for _, _, w in dec], overlap)):
-            answers[f"ans_{i}"] = np.frombuffer(y.astype(np.float32).tobytes(), np.uint8)
-    return dict(check(run, res, answers, rec, reference=exact), low_precision_launches=0.0)
 
 
 def new_run(args, seed, wl, config, mix):
@@ -99,29 +60,28 @@ def main(argv=None) -> int:
     import torch
 
     from benchmark import cell
-    from benchmark.reference import ReferenceCodec
     from benchmark.run import gpu_line
-    from benchmark.weights import make_state
 
     cell.log(f"[gpu] {gpu_line()}; torch {torch.__version__}")
     manifest = cell.load_manifest()
     wl = cell.workload_entry(manifest, args.workload)
     config, mix = cell.config_file(manifest, wl["config"]), cell.mix_file(wl["traffic"])
     loop = importlib.import_module(f"benchmark.loops.{mix['loop']}")
-    controls = {int(s) for s in args.control_seeds.split(",") if s}
-    for seed in [int(s) for s in args.seeds.split(",")] + sorted(controls):
+    control_seeds = {int(s) for s in args.control_seeds.split(",") if s}
+    for seed in [int(s) for s in args.seeds.split(",")] + sorted(control_seeds):
         run = new_run(args, seed, wl, config, mix)
         loop.run(run)
         print(json.dumps({"seed": seed, "side": "program", **run.numbers, "attempted": run.attempted,
                           "failed": run.failed, **run.end_to_end}), flush=True)
-        if seed in controls:
-            exact = ReferenceCodec(run.gp, make_state(run.gp, seed, run.device))
-            control = control_offline if mix["loop"] == "offline" else control_serve
-            variants = {"control": config["control"],
-                        **{f"control.{k}": v for k, v in config.get("stage_controls", {}).items()}}
-            for side, formats in variants.items():
-                print(json.dumps({"seed": seed, "side": side, **control(run, exact, formats)}), flush=True)
-            del exact, run
+        if seed in control_seeds:
+            sides = loop.controls(run, config)
+            if "control" not in sides:
+                print(f"benchmark/loops/{mix['loop']}.py: controls gave no control side, only {sorted(sides)}",
+                      file=sys.stderr)
+                return 1
+            for side, numbers in sides.items():
+                print(json.dumps({"seed": seed, "side": side, **numbers}), flush=True)
+            del run
             torch.cuda.empty_cache()
             if "program_control" in config:
                 run = new_run(args, seed, wl, dict(config, **config["program_control"]), mix)

@@ -1,34 +1,38 @@
 """The controls come out not correct.
 
-The control, the reference in the program's place one format lower: on the
-card at the cells' own sizes (``-m chip``) against each cell's limits, on
+The control, the reference in the program's place one format lower (the
+``control`` side of the loop's controls, as ``calibrate.py`` reads them):
+on the card at every cell's own size (``-m chip``) against its limits, on
 the checked answers of a short run, three seeds each; on the CPU at narrow
-widths, apart from the program by three times or more.  The program's own lower-precision path (the configuration's
-``program_control`` mode) on the card at the cells' sizes, three seeds
-each; on the CPU the count it fails on is checked on launch records.
+widths, for the codec's cells, apart from the program by three times or
+more.  The program's own lower-precision path (the configuration's
+``program_control``), for every cell whose configuration has one, on the
+card at the cell's size, three seeds each; on the CPU the count the codec's
+fail on is checked on launch records.
 """
+
+import importlib
 
 import pytest
 import torch
 
-from benchmark import judge
-from benchmark.calibrate import control_offline, control_serve
-from benchmark.reference import ReferenceCodec
-from benchmark.weights import make_state
+from benchmark import cell, judge
 from tiny import tiny_run
 
-WORKLOADS = ["codec-int8.offline-long", "codec-bf16.offline-long", "codec-int8.serve-short"]
+CODEC_WORKLOADS = ["codec-int8.offline-long", "codec-bf16.offline-long", "codec-int8.serve-short"]
+MANIFEST = cell.load_manifest()
+WORKLOADS = [w["name"] for w in MANIFEST["workloads"]]
+LOWER_PATH_WORKLOADS = [w["name"] for w in MANIFEST["workloads"]
+                        if "program_control" in cell.config_file(MANIFEST, w["config"])]
 
 
 def control_numbers(run):
-    import importlib
-
-    importlib.import_module(f"benchmark.loops.{run.mix['loop']}").run(run)
-    exact = ReferenceCodec(run.gp, make_state(run.gp, run.seed, run.device))
-    return (control_offline if run.mix["loop"] == "offline" else control_serve)(run, exact, run.config["control"])
+    loop = importlib.import_module(f"benchmark.loops.{run.mix['loop']}")
+    loop.run(run)
+    return loop.controls(run, run.config, sides=["control"])["control"]
 
 
-@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("workload", CODEC_WORKLOADS)
 def test_control_separates_from_the_program_at_narrow_widths(workload):
     """At narrow widths the errors are not the cells' (two layers a tower, three
     Vocos blocks), so the cells' limits are held on the card below; here the
@@ -43,12 +47,10 @@ def cell_run(workload, seed, device, program_control=False):
     import tempfile
     import time
 
-    from benchmark import cell
     from benchmark.run import CACHE
 
-    manifest = cell.load_manifest()
-    wl = cell.workload_entry(manifest, workload)
-    config = cell.config_file(manifest, wl["config"])
+    wl = cell.workload_entry(MANIFEST, workload)
+    config = cell.config_file(MANIFEST, wl["config"])
     if program_control:
         config = dict(config, **config["program_control"])
     return cell.Run(workload=workload, seed=seed, seconds=3.0, trace=False, wl=wl, config=config,
@@ -67,14 +69,14 @@ def test_control_fails_at_the_cells_size(chip, workload, seed):
 
 @pytest.mark.chip
 @pytest.mark.parametrize("seed", [2**31 + 1011, 2**31 + 1012, 2**31 + 1013])
-@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("workload", LOWER_PATH_WORKLOADS)
 def test_program_lower_path_fails_at_the_cells_size(chip, workload, seed):
-    import importlib
-
     run = cell_run(workload, seed, chip, program_control=True)
     importlib.import_module(f"benchmark.loops.{run.mix['loop']}").run(run)
     ok, checks = judge.verdict(run.numbers, judge.load_limits(workload))
-    assert not ok and checks["low_precision_launches"]["value"] > 0, checks
+    assert not ok, checks
+    if "low_precision_launches" in checks:  # the codec's lower paths fail on it alone
+        assert checks["low_precision_launches"]["value"] > 0, checks
     torch.cuda.empty_cache()
 
 

@@ -3,6 +3,7 @@
 import json
 import re
 
+import bench_rules
 import pytest
 
 from conftest import ROOT
@@ -83,11 +84,23 @@ def test_files_are_found_by_name_under_paths():
         assert (root / "metrics" / f"{p['name']}.py").is_file()
 
 
+def test_every_loop_gives_run_and_controls():
+    """``run(run)`` and ``controls(run, config, sides=None)``, which ``calibrate.py`` and the control tests call."""
+    assert bench_rules.loop_protocol_faults(ROOT) == []
+
+
+def test_each_configuration_is_held_to_its_own_model():
+    """Its file's ``parameters`` and ``published`` sizes against its model's module, its cuts listed."""
+    assert bench_rules.config_faults(ROOT) == []
+
+
 def test_configs_are_the_published_generator_uncut():
     from benchmark.weights import parameter_count
 
     m = manifest()
-    for c in m["configs"]:
+    codec = [c for c in m["configs"] if bench_rules.load_json(ROOT / c["file"])["model"] == "simwhisper_codec"]
+    assert [c["name"] for c in codec] == ["simwhisper-codec-int8", "simwhisper-codec-bf16"]
+    for c in codec:
         with open(ROOT / c["file"]) as f:
             cfg = json.load(f)
         assert c["reduced"] == [] == cfg["reduced"]
@@ -98,13 +111,6 @@ def test_configs_are_the_published_generator_uncut():
                 gp["vocos"]["intermediate_dim"]) == (12, 768, 3072, 24, 4096)
 
 
-@pytest.mark.parametrize("workload", ["codec-int8.offline-long", "codec-bf16.offline-long", "codec-int8.serve-short"])
+@pytest.mark.parametrize("workload", [w["name"] for w in manifest()["workloads"]])
 def test_limits_lie_between_their_readings(workload):
-    with open(ROOT / "benchmark" / "limits" / f"{workload}.json") as f:
-        limits = json.load(f)
-    for name, entry in limits.items():
-        if entry["limit"] == 0.0:  # exact: sound runs read 0, and a control, where one was read, more
-            assert entry.get("lower", 0.0) == 0.0 and entry.get("upper", 1.0) > 0.0, name
-        else:  # with more room above the lower reading than below the upper
-            lo, lim, up = entry["lower"], entry["limit"], entry["upper"]
-            assert lo < lim < up and up >= 3 * lo and lim - lo > up - lim, name
+    assert bench_rules.limit_faults(ROOT, workload) == []

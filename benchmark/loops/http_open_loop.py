@@ -42,7 +42,8 @@ import torch
 from benchmark import judge, traffic
 from benchmark.cell import Run, log, peak_bytes, reset_peak
 from benchmark.devtrace import DeviceTrace
-from benchmark.reference import ReferenceCodec, float32_exact
+from benchmark.loops import control_sides
+from benchmark.reference import LowerPrecision, ReferenceCodec, float32_exact
 from benchmark.spans import Recorder, payload_digest
 from benchmark.weights import make_state
 
@@ -221,6 +222,14 @@ def latency_stats(res: dict, deadline_s: float) -> dict:
             "latency_s": lat, "lateness_s": np.asarray(res["lateness"], dtype=np.float64)}
 
 
+def between_batches(rec: Recorder, step) -> None:
+    """``step`` (the profiler's start or stop) while no micro-batch runs: torch's
+    profiler, stopped here while the batcher thread replays a CUDA graph, has
+    deadlocked both threads on the card."""
+    with rec.launches:
+        step()
+
+
 def run(run: Run) -> None:
     mix = run.mix
     rec = run.recorder = Recorder()
@@ -242,11 +251,11 @@ def run(run: Run) -> None:
         rec.active = True
         if trace is not None:
             time.sleep(run.seconds * mix["trace_start_share"])
-            trace.start()
+            between_batches(rec, trace.start)
             rec.tracing = True
             time.sleep(mix["trace_seconds"])
             rec.tracing = False
-            trace.stop()
+            between_batches(rec, trace.stop)
         res, answers = load.results()
         if trace is not None:
             run.trace_summary = trace.summarise()
@@ -329,3 +338,27 @@ def check(run: Run, res: dict, answers: dict, rec: Recorder, reference=None) -> 
     log(f"reference: {len(enc)} encode and {len(dec)} decode answers in {time.perf_counter() - t0:.3f} s")
     return {"code_gap": max(gaps, default=float("nan")), "wav_err": max(errs, default=float("nan")),
             "shape_errors": float(bad)}
+
+
+def control_serve(run: Run, exact: ReferenceCodec, formats: dict) -> dict:
+    """The numbers of the reference with ``formats`` ({stage: format}) in the
+    server's place, on the checked requests: the encode requests' audio, the
+    decode requests' codes at their micro-batch widths; compared with ``exact``."""
+    res, rec = run.checked
+    ctrl = ReferenceCodec(run.gp, exact.p, LowerPrecision(formats))
+    enc, dec = checked_requests(run, res, rec)
+    dec = [d for d in dec if d[2] is not None]
+    overlap = run.mix["overlap_seconds"]
+    answers = {}
+    with torch.no_grad(), float32_exact():
+        for (i, _), (c, _) in zip(enc, ctrl.encode([w for _, w in enc], overlap)):
+            answers[f"ans_{i}"] = np.frombuffer(c.astype(np.int32).tobytes(), np.uint8)
+        for (i, _, _), y in zip(dec, ctrl.decode([c for _, c, _ in dec], [w for _, _, w in dec], overlap)):
+            answers[f"ans_{i}"] = np.frombuffer(y.astype(np.float32).tobytes(), np.uint8)
+    return dict(check(run, res, answers, rec, reference=exact), low_precision_launches=0.0)
+
+
+def controls(run: Run, config: dict, sides=None) -> dict:
+    """{side: numbers} of the reference one format lower in the server's place (``control_sides``)."""
+    exact = ReferenceCodec(run.gp, make_state(run.gp, run.seed, run.device))
+    return {side: control_serve(run, exact, formats) for side, formats in control_sides(config, sides).items()}

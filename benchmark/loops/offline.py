@@ -23,7 +23,8 @@ import torch
 from benchmark import judge, traffic
 from benchmark.cell import Run, log, peak_bytes, reset_peak
 from benchmark.devtrace import DeviceTrace
-from benchmark.reference import ReferenceCodec, float32_exact
+from benchmark.loops import control_sides
+from benchmark.reference import LowerPrecision, ReferenceCodec, float32_exact
 from benchmark.spans import Recorder
 from benchmark.weights import make_state
 
@@ -159,3 +160,23 @@ def check(gp: dict, seed: int, device, items: Sequence[Checked], overlap: int, r
         f"in {time.perf_counter() - t0:.3f} s")
     return {"code_gap": max(gaps, default=float("nan")), "wav_err": max(errs, default=float("nan")),
             "shape_errors": float(bad)}
+
+
+def control_offline(run: Run, exact: ReferenceCodec, formats: dict) -> dict:
+    """The numbers of the reference with ``formats`` ({stage: format}) in the
+    program's place, on the program's checked utterances: it encodes their
+    inputs and decodes its own codes at the same chunk widths, and is
+    compared with ``exact``; it launches no kernel."""
+    ctrl = ReferenceCodec(run.gp, exact.p, LowerPrecision(formats))
+    overlap = run.mix["overlap_seconds"]
+    with torch.no_grad(), float32_exact():
+        codes = [c for c, _ in ctrl.encode([it.wav for it in run.checked], overlap)]
+        outs = ctrl.decode(codes, [it.batch_frames for it in run.checked], overlap)
+    items = [Checked(it.wav, c.astype(np.int32), y, it.batch_frames) for it, c, y in zip(run.checked, codes, outs)]
+    return dict(check(run.gp, run.seed, run.device, items, overlap, reference=exact), low_precision_launches=0.0)
+
+
+def controls(run: Run, config: dict, sides=None) -> dict:
+    """{side: numbers} of the reference one format lower in the program's place (``control_sides``)."""
+    exact = ReferenceCodec(run.gp, make_state(run.gp, run.seed, run.device))
+    return {side: control_offline(run, exact, formats) for side, formats in control_sides(config, sides).items()}

@@ -11,7 +11,10 @@
   decoded at (the longest payload of its call), for the correctness check.
 
 Calls are recorded only while ``Recorder.active`` is set (the measured
-window), and flagged ``traced`` while the profiler runs.
+window), and flagged ``traced`` while the profiler runs.  A runner call
+holds ``Recorder.launches``, under which the serving loop starts and stops
+the profiler: torch's profiler, stopped on one thread while another replays
+a CUDA graph, can deadlock both.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ class Recorder:
         self.runner_calls: List[dict] = []
         self.decode_width: Dict[str, int] = {}
         self._lock = threading.Lock()
+        self.launches = threading.Lock()  # held by each runner call
 
     def add(self, kind: str, record: dict) -> None:
         if self.active:
@@ -55,7 +59,7 @@ class Recorder:
                 for p in payloads:
                     self.decode_width[payload_digest(p)] = width
             t0 = time.perf_counter()
-            with torch.profiler.record_function(f"bench.runner.{kind}"):
+            with self.launches, torch.profiler.record_function(f"bench.runner.{kind}"):
                 out = runner(kind, payloads)
             audio_s = sum(len(p) for p in payloads) / sample_rate if kind != "decode" else 0.0
             self.add("runner", {"kind": kind, "requests": len(payloads), "input_audio_s": audio_s,
