@@ -1241,6 +1241,9 @@ class ProgramArgs:
     def __init__(self, program):
         self.program, self.args = program, None
 
+    def __getattr__(self, name):  # count, source, ... of the program
+        return getattr(self.program, name)
+
     def __call__(self, *args):
         self.args = args
         return self.program(*args)
@@ -1338,8 +1341,9 @@ def eval_phase(torch, cfg, codec, weights: Path) -> None:
     tool; a synthetic corpus of 8 FLAC utterances of 4-8 s (seed 0) through
     the serving codec (fast-int8, random weights), the host metrics, the
     code statistics and the three towers (TF32 off; once more with TF32 on
-    for the time; each tower timed warm, after one call per bucket); each tower on the card against the CPU on a 4 s
-    utterance, and bucket-padded against exact length on the card; the
+    for the time; each tower timed warm, after a call of each shape it
+    meets); each tower on the card against the CPU on a 4 s utterance, and
+    bucket-padded against exact length on the card; the
     trainer's held-out probe (``--smoke --steps 4 --eval_every 2``) in a
     child process.  The towers are written into ``weights`` (phase 7 reads
     them there)."""
@@ -1382,7 +1386,7 @@ def eval_phase(torch, cfg, codec, weights: Path) -> None:
         timing = report["timing"]
         tower_line = "; ".join(
             f"{name} {t['ms_per_audio_s']:.3f} ms per audio s warm ({t['audio_s']:.1f} audio s in {t['run_s']:.2f} s, "
-            f"after {t['warmup_s']:.2f} s of warm-up, one call per bucket; weights loaded in {t['load_s']:.1f} s), "
+            f"after {t['warmup_s']:.2f} s of warm-up, a call of each shape; weights loaded in {t['load_s']:.1f} s), "
             f"peak max_memory_allocated {t['peak_bytes'] / 1e9:.2f} GB"
             for name, t in timing["towers"].items())
         log(f"[eval] {gpu}: synthetic weights, TF32 off: codec (fast-int8 round trip + code statistics) "

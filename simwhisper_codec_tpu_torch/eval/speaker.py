@@ -21,18 +21,23 @@ eval mode on the stored statistics.  Run under ``f32_precision("highest")``.
 ``SpeakerEmbedder.program`` runs a frontend and ECAPA as one
 ``utils/aot.py`` program (a CUDA graph per input shape on the card), the
 twin of the JAX ``_forward_wavlm`` / ``_forward_fbank`` jits.
+
+``SpeakerEmbedder.embed_batch`` is the one path: rows sorted by length and
+grouped by power-of-two-second bucket, each group one program call of a
+power-of-two number of rows (``wavlm_groups``) padded with empty rows, so
+that a bucket is a few signatures; one upload and one download a call.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.nn import functional as F
 
-from simwhisper_codec_tpu_torch.models.codec import f32_precision, resolve_device
+from simwhisper_codec_tpu_torch.models.codec import HostStaging, f32_precision, resolve_device
 from simwhisper_codec_tpu_torch.models.ssl import (
     SSLConfig,
     init_ssl_params,
@@ -43,6 +48,7 @@ from simwhisper_codec_tpu_torch.models.ssl import (
     wavlm_large_config,
 )
 from simwhisper_codec_tpu_torch.utils import aot
+from simwhisper_codec_tpu_torch.utils.profiling import annotate
 from simwhisper_codec_tpu_torch.utils.ssl_checkpoint import convert_msft_wavlm, to_tensor
 
 EMB_DIM = 256  # ECAPA_TDNN_SMALL default (ecapa_tdnn.py:295)
@@ -50,6 +56,51 @@ CHANNELS = 512
 SCALE = 8
 CAT_CHANNELS = 1536  # self.channels[-1] (ecapa_tdnn.py:227)
 WAVLM_PREFIX = "feature_extract.model."
+MIN_SAMPLES = 800  # a shorter row is zero-padded to this length (the conv stack needs 400)
+MAX_ROWS = 16  # rows of one WavLM program up to the 32 s bucket
+ROWS_BUCKET = 32 * 16000
+PAIRS_PER_CALL = 64  # ``similarities``: pairs a call, both rows of a pair in one call
+
+
+def group_rows(bucket: int, max_rows: int) -> int:
+    """The most rows of one program at ``bucket`` samples, at least one:
+    ``max_rows`` up to the 32 s bucket; above it rows x bucket (the memory of
+    the GEMMs and convolutions) no more than at 32 s, and rows x bucket^2
+    (the (rows, heads, T, T) attention's) no more than at 64 s.  At 16:
+    16, 8, 2, 1, 1 rows at 32, 64, 128, 256, 512 s."""
+    linear = max_rows * ROWS_BUCKET // max(bucket, ROWS_BUCKET)
+    square = 2 * max_rows * ROWS_BUCKET ** 2 // bucket ** 2
+    return max(1, min(linear, square))
+
+
+def wavlm_groups(lengths: np.ndarray, max_rows: int) -> List[tuple]:
+    """(bucket samples, program rows, input rows) of each program call for rows
+    of ``lengths`` samples: sorted by length, grouped by power-of-two-second
+    bucket, full groups of ``group_rows`` rows, then the bucket's last rows
+    in a group padded to the next power of two.  A bucket's signatures are
+    its power-of-two row counts: 5 at most up to the 32 s bucket."""
+    order = np.argsort(lengths, kind="stable")
+    buckets = np.array([power_of_two_bucket(int(n)) for n in lengths[order]], np.int64)
+    groups = []
+    for bucket in np.unique(buckets).tolist():
+        rows, most = order[buckets == bucket], group_rows(bucket, max_rows)
+        s = 0
+        while s < len(rows):
+            r = min(most, 1 << (len(rows) - s - 1).bit_length())
+            groups.append((bucket, r, rows[s:s + r]))
+            s += r
+    return groups
+
+
+def pair_calls(pairs: Sequence[tuple]) -> List[list]:
+    """The rows of each ``embed_batch`` call of ``similarities(pairs)``:
+    both rows of ``PAIRS_PER_CALL`` pairs a call."""
+    return [[w for pair in pairs[s:s + PAIRS_PER_CALL] for w in pair] for s in range(0, len(pairs), PAIRS_PER_CALL)]
+
+
+def cosine(a: np.ndarray, b: np.ndarray) -> float:
+    """The reference's SIM of two embeddings (``spk_sim_cal.py``)."""
+    return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
 
 
 def _valid_mask(x: torch.Tensor, frame_lengths: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -325,17 +376,26 @@ def load_wavlm_ecapa_checkpoint(ckpt_path: str, ssl_cfg: SSLConfig = None):
 
 
 class SpeakerEmbedder:
-    """Reference-matching speaker embedder, WavLM-large (or fbank) -> ECAPA:
-    ``embed(wav)`` is ``extract_spk_emb.py``'s per-utterance flow.  WavLM
-    inputs pad to power-of-two-second buckets with masked statistics.
-    ``program``: the frontend and ECAPA on the weights, one program per
-    bucket (WavLM) or per hop-truncated length (fbank)."""
+    """Reference-matching speaker embedder, WavLM-large (or fbank) -> ECAPA.
+
+    ``embed_batch(wavs)`` is the one path (``embed(wav)`` is a call of one
+    row): ``extract_spk_emb.py``'s per-utterance flow, each row embedded as
+    if alone.  WavLM rows (a row shorter than ``MIN_SAMPLES`` counts as that
+    long, zero-padded) are sorted by length and grouped by power-of-two-second
+    bucket (``wavlm_groups``); each group is one ``program`` call, its last
+    rows padded with empty rows of ``MIN_SAMPLES`` zeros, masked statistics
+    keeping each row to its own length.  ``max_rows`` (``MAX_ROWS``; a test
+    lowers it) bounds a group (``group_rows``): a bucket up to 32 s is then at
+    most 5 graphs.  fbank rows run one
+    a program at their hop-truncated exact length.  ``precision``:
+    ``highest`` (TF32 off) or ``default`` (TF32 for matmuls and cuDNN)."""
 
     def __init__(self, ecapa_params: dict = None, feat_type: str = "fbank", wavlm_params: dict = None,
                  feature_weight=None, ssl_cfg: SSLConfig = None, seed: int = 0, device=None,
-                 precision: str = "highest"):
+                 precision: str = "highest", max_rows: Optional[int] = None):
         self.precision = precision  # "highest": TF32 off; "default": TF32 on
         self.device = resolve_device(device)
+        self.max_rows = max_rows or MAX_ROWS
         self.feat_type = feat_type
         move = lambda tree: tree_map(lambda t: t.to(self.device), tree)  # noqa: E731
         if feat_type == "wavlm_large":
@@ -356,6 +416,7 @@ class SpeakerEmbedder:
         self.params = move(ecapa_params)
         forward = self._forward_wavlm if feat_type == "wavlm_large" else self._forward_fbank
         self.program = aot.CapturedProgram(forward, f"speaker_{feat_type}")
+        self._staging = HostStaging(self.device)
 
     def _forward_wavlm(self, wav: torch.Tensor, lengths: torch.Tensor) -> dict:
         feats, frame_lengths = wavlm_weighted_features(self.ssl_cfg, self.wavlm_params, self.feature_weight, wav,
@@ -366,26 +427,99 @@ class SpeakerEmbedder:
         return {"embedding": ecapa_forward(self.params, self.frontend(wav))}
 
     @classmethod
-    def from_checkpoint(cls, ckpt_path: str, device=None, precision: str = "highest") -> "SpeakerEmbedder":
+    def from_checkpoint(cls, ckpt_path: str, device=None, precision: str = "highest",
+                        max_rows: Optional[int] = None) -> "SpeakerEmbedder":
         ecapa, wavlm, fw, ssl_cfg = load_wavlm_ecapa_checkpoint(ckpt_path)
         return cls(ecapa, feat_type="wavlm_large", wavlm_params=wavlm, feature_weight=fw, ssl_cfg=ssl_cfg,
-                   device=device, precision=precision)
+                   device=device, precision=precision, max_rows=max_rows)
+
+    def embed(self, wav: np.ndarray, sample_rate: int = 16000) -> np.ndarray:
+        """One utterance's (256,) embedding: ``embed_batch([wav])[0]``."""
+        return self.embed_batch([wav], sample_rate)[0]
 
     @torch.no_grad()
-    def embed(self, wav: np.ndarray, sample_rate: int = 16000) -> np.ndarray:
+    def embed_batch(self, wavs: Sequence[np.ndarray], sample_rate: int = 16000) -> np.ndarray:
+        """1-D float waveforms at 16 kHz -> (N, 256) float32 embeddings in input order.
+
+        One ``speaker.embed`` span a call (``rows``, ``samples``: the input
+        samples summed, ``groups``: program calls, ``staging``), tiled by
+        ``speaker.embed.host`` (``step``: pack / stage / unpack),
+        ``speaker.embed.program`` (``rows``, ``bucket_samples``, ``source``)
+        and one ``speaker.embed.fetch`` span."""
         if sample_rate != 16000:
             raise ValueError("resample to 16 kHz on load (audio_io.load_audio)")
-        wav = np.asarray(wav, np.float32).reshape(-1)
-        n = max(len(wav), 800)
-        with f32_precision(self.precision):
-            if self.feat_type == "wavlm_large":
-                padded = np.zeros((1, power_of_two_bucket(n)), np.float32)
-                padded[0, : len(wav)] = wav
-                out = self.program(torch.from_numpy(padded).to(self.device), torch.tensor([n], device=self.device))
-            else:
-                # fbank: the reflect-centred STFT's tail frames depend on the
-                # true end, so it runs at the hop-truncated exact length
-                n = n // FbankFrontend.HOP * FbankFrontend.HOP
-                x = wav[:n] if len(wav) >= n else np.pad(wav, (0, n - len(wav)))
-                out = self.program(torch.from_numpy(np.ascontiguousarray(x[None])).to(self.device))
-        return out["embedding"][0].cpu().numpy()
+        wavs = [np.asarray(w, np.float32).reshape(-1) for w in wavs]
+        with annotate("speaker.embed", rows=len(wavs), samples=sum(len(w) for w in wavs),
+                      staging=self._staging.kind) as attrs, f32_precision(self.precision):
+            return self._embed_batch(wavs, attrs)
+
+    def _groups(self, lengths: np.ndarray) -> List[tuple]:
+        """(program samples, program rows, input rows) of each program call."""
+        if self.feat_type == "fbank":
+            # the reflect-centred STFT's tail frames depend on the true end:
+            # each row runs alone at its hop-truncated exact length
+            return [(int(n) // FbankFrontend.HOP * FbankFrontend.HOP, 1, np.array([i]))
+                    for i, n in enumerate(lengths)]
+        return wavlm_groups(lengths, self.max_rows)
+
+    def _embed_batch(self, wavs: List[np.ndarray], attrs: dict) -> np.ndarray:
+        emb_dim = self.params["fc"]["w"].shape[0]
+        if not wavs:
+            attrs["groups"] = 0
+            return np.zeros((0, emb_dim), np.float32)
+        with annotate("speaker.embed.host", step="pack"):
+            lengths = np.array([max(len(w), MIN_SAMPLES) for w in wavs], np.int64)
+            groups = self._groups(lengths)
+            attrs["groups"] = len(groups)
+            wavlm = self.feat_type == "wavlm_large"
+            specs = [((r, n), torch.float32) for n, r, _ in groups]
+            if wavlm:
+                specs += [((r,), torch.int64) for _, r, _ in groups]
+            host = self._staging.pack(*specs, ((len(wavs),), torch.int64))
+            for (n, _, rows), x in zip(groups, host):
+                for i, j in enumerate(rows):
+                    w = wavs[j][:n]
+                    x[i, : len(w)] = w
+                    x[i, len(w):] = 0
+                x[len(rows):] = 0
+            if wavlm:
+                for (_, _, rows), lens in zip(groups, host[len(groups):]):
+                    lens[: len(rows)] = lengths[rows]
+                    lens[len(rows):] = MIN_SAMPLES  # an empty row: no row is all masked
+            host[-1][:] = np.concatenate([rows for _, _, rows in groups])
+        with annotate("speaker.embed.host", step="stage"):
+            dev = self._staging.upload()
+            positions = dev[-1]
+            result = torch.empty((len(wavs), emb_dim), device=self.device)
+        start = 0
+        for g, (n, r, rows) in enumerate(groups):
+            args = (dev[g], dev[len(groups) + g]) if wavlm else (dev[g],)
+            with annotate("speaker.embed.program", rows=r, bucket_samples=n) as program:
+                emb = self.program(*args)["embedding"]
+                program["source"] = self.program.source
+            with annotate("speaker.embed.host", step="unpack"):
+                # before the next program: a replay's outputs are its own until the next replay
+                result.index_copy_(0, positions[start:start + len(rows)], emb[: len(rows)])
+                start += len(rows)
+        with annotate("speaker.embed.fetch"):
+            return self._staging.download(result)
+
+    def warm(self, calls: Sequence[Sequence[np.ndarray]], sample_rate: int = 16000) -> None:
+        """Run each program signature that ``embed_batch`` meets on ``calls``
+        (the rows of each call) once, so that those calls capture nothing."""
+        signatures = {}
+        for wavs in calls:
+            lengths = np.array([max(len(w), MIN_SAMPLES) for w in wavs], np.int64)
+            for n, r, rows in self._groups(lengths):
+                signatures.setdefault((n, r), wavs[rows[0]])
+        for (_, r), w in signatures.items():
+            self.embed_batch([w] * r, sample_rate)  # r rows of one bucket: one group of r
+
+    def similarities(self, pairs: Sequence[tuple], sample_rate: int = 16000) -> np.ndarray:
+        """SIM of each (a, b) waveform pair: the cosine of their embeddings,
+        both rows of ``PAIRS_PER_CALL`` pairs in one ``embed_batch`` call."""
+        sims = []
+        for rows in pair_calls(pairs):
+            emb = self.embed_batch(rows, sample_rate)
+            sims += [cosine(emb[2 * i], emb[2 * i + 1]) for i in range(len(emb) // 2)]
+        return np.array(sims, np.float64)

@@ -14,8 +14,9 @@ Counterpart of ``tools/eval_corpus.py``.  Drives ``eval/corpus.py``
             writes synthetic ones)
 
 and reports each part's wall seconds under ``timing``, with each tower's
-ms per audio second (warm: after one untimed call per length bucket) and
-peak device memory.  ``--synthetic N`` first writes
+ms per audio second (warm: after an untimed call of each shape it meets;
+the speaker tower's batched calls, ``SpeakerEmbedder.warm``) and peak
+device memory.  ``--synthetic N`` first writes
 an N-utterance synthetic FLAC corpus.  Runs on ``cuda`` unless
 ``--device cpu``.
 
@@ -40,7 +41,7 @@ from simwhisper_codec_tpu_torch.eval import evaluator
 from simwhisper_codec_tpu_torch.eval import metrics as M
 from simwhisper_codec_tpu_torch.eval.codebook import corpus_codebook_stats
 from simwhisper_codec_tpu_torch.eval.corpus import evaluate_corpus
-from simwhisper_codec_tpu_torch.eval.speaker import SpeakerEmbedder
+from simwhisper_codec_tpu_torch.eval.speaker import SpeakerEmbedder, pair_calls
 from simwhisper_codec_tpu_torch.eval.utmos import UTMOSScorer
 from simwhisper_codec_tpu_torch.eval.wer import Calculator, CTCTranscriber, have_asr
 from simwhisper_codec_tpu_torch.models.codec import AudioCodec, init_params, resolve_device
@@ -86,16 +87,21 @@ def quality_report(input_dir: str, output_dir: str, limit=None) -> dict:
     return out
 
 
+def _one_a_bucket(wavs) -> list:
+    """A waveform of each power-of-two-second bucket of ``wavs``."""
+    return list({power_of_two_bucket(len(w)): w for w in wavs}.values())
+
+
 class _TowerClock:
     """Wall seconds, audio seconds and peak device memory of one tower,
-    started after ``warm`` ran one untimed call per bucket."""
+    started after ``warm()`` ran, untimed, a call of each shape the timed
+    part meets."""
 
-    def __init__(self, device: torch.device, warm, wavs):
+    def __init__(self, device: torch.device, warm):
         self.device = device
         self.audio_s = 0.0
         t0 = time.perf_counter()
-        for wav in {power_of_two_bucket(len(w)): w for w in wavs}.values():
-            warm(wav)  # the first call of a shape pays cuDNN / LSTM planning
+        warm()  # the first call of a shape pays cuDNN / LSTM planning and the graph capture
         if device.type == "cuda":
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
@@ -125,8 +131,8 @@ def tower_metrics(input_dir: str, recon_dir: str, asr_model: str = None, utmos_c
     recognitions.  UTMOS scores both directories; speaker similarity is the
     mean pairwise cosine.  ``precision``: ``highest`` (TF32 off, the
     default) or ``default`` (TF32).  ``timing`` holds each tower's clock,
-    which starts after one untimed call on an utterance of each bucket
-    (``warmup_s``)."""
+    which starts after untimed calls of each shape it meets: one utterance
+    of each bucket, the speaker tower's program signatures (``warmup_s``)."""
     device = resolve_device(device)
     pairs = _pairs(input_dir, recon_dir, limit)
     out = {"num_pairs": len(pairs)}
@@ -140,7 +146,7 @@ def tower_metrics(input_dir: str, recon_dir: str, asr_model: str = None, utmos_c
         t0 = time.perf_counter()
         asr = CTCTranscriber(asr_model, device=device, precision=precision)
         load_s = time.perf_counter() - t0
-        clock = _TowerClock(device, asr.transcribe, audio.values())
+        clock = _TowerClock(device, lambda: [asr.transcribe(w) for w in _one_a_bucket(audio.values())])
         truths = {}
         if trans_dir:
             for tf in Path(trans_dir).rglob("*.trans.txt"):
@@ -179,7 +185,7 @@ def tower_metrics(input_dir: str, recon_dir: str, asr_model: str = None, utmos_c
         t0 = time.perf_counter()
         scorer = UTMOSScorer(utmos_ckpt, device=device, precision=precision)
         load_s = time.perf_counter() - t0
-        clock = _TowerClock(device, scorer.score, audio.values())
+        clock = _TowerClock(device, lambda: [scorer.score(w) for w in _one_a_bucket(audio.values())])
         rec_scores = [scorer.score(audio[p]) for _, _, p in pairs]
         orig_scores = [scorer.score(audio[p]) for _, p, _ in pairs]
         clock.audio_s += sum(seconds(o, r) for _, o, r in pairs)
@@ -192,12 +198,10 @@ def tower_metrics(input_dir: str, recon_dir: str, asr_model: str = None, utmos_c
         t0 = time.perf_counter()
         emb = SpeakerEmbedder.from_checkpoint(ecapa_ckpt, device=device, precision=precision)
         load_s = time.perf_counter() - t0
-        clock = _TowerClock(device, emb.embed, audio.values())
-        sims = []
-        for _, orig_path, rec_path in pairs:
-            a, b = emb.embed(audio[orig_path]), emb.embed(audio[rec_path])
-            clock.audio_s += seconds(orig_path, rec_path)
-            sims.append(float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12)))
+        wav_pairs = [(audio[orig_path], audio[rec_path]) for _, orig_path, rec_path in pairs]
+        clock = _TowerClock(device, lambda: emb.warm(pair_calls(wav_pairs)))
+        sims = emb.similarities(wav_pairs)
+        clock.audio_s += sum(seconds(o, r) for _, o, r in pairs)
         out["speaker_sim"] = round(float(np.mean(sims)), 4)
         timing["speaker_sim"] = clock.result(load_s)
         del emb

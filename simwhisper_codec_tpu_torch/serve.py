@@ -56,6 +56,9 @@ class CodecHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
 
 
+_CLOSE = object()  # queued by ``MicroBatcher.close``: the batch thread ends there
+
+
 class MicroBatcher:
     """Collects requests for up to ``window_ms`` and runs them as one batch.
 
@@ -68,6 +71,8 @@ class MicroBatcher:
     first request to the window's close) and ``serve.batch`` (one a kind's
     runner call, attrs ``kind`` and ``requests``); when a micro-batch starts
     it closes one ``serve.queue`` span a request, from its submit to then.
+    ``close`` ends the batch thread after the requests queued before it,
+    which lets the runner (and the codec it holds) go.
     """
 
     def __init__(self, runner, max_batch: int = 8, window_ms: float = 5.0, queue_depth: int = 64):
@@ -80,7 +85,13 @@ class MicroBatcher:
         self.rejected = 0
         self.batches = 0
         self.audio_seconds = 0.0
-        threading.Thread(target=self._loop, daemon=True).start()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Run what is queued, then end the batch thread (waiting up to ``timeout`` s)."""
+        self.q.put(_CLOSE)
+        self._thread.join(timeout)
 
     def add_audio(self, seconds: float) -> None:
         with self._lock:
@@ -101,9 +112,12 @@ class MicroBatcher:
         return slot["result"]
 
     def _loop(self):
-        while True:
+        closing = False
+        while not closing:
             with profiling.annotate("serve.wait"):
                 batch = [self.q.get()]
+            if batch[0] is _CLOSE:
+                return
             with profiling.annotate("serve.collect"):
                 deadline = time.monotonic() + self.window_s
                 while len(batch) < self.max_batch:
@@ -111,9 +125,13 @@ class MicroBatcher:
                     if timeout <= 0:
                         break
                     try:
-                        batch.append(self.q.get(timeout=timeout))
+                        slot = self.q.get(timeout=timeout)
                     except queue.Empty:
                         break
+                    if slot is _CLOSE:
+                        closing = True
+                        break
+                    batch.append(slot)
             started = profiling.clock_ns()
             by_kind: dict = {}
             for slot in batch:
@@ -279,6 +297,7 @@ def main(argv=None):
         server.serve_forever()
     finally:
         server.server_close()
+        batcher.close()
 
 
 if __name__ == "__main__":

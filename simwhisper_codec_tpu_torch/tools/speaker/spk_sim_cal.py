@@ -3,8 +3,9 @@
 Twin of the JAX package's ``tools/speaker/spk_sim_cal.py`` (reference
 ``tools/speaker/spk_sim_cal.py:13-75`` + ``extract_spk_emb.py:38-94``):
 embeds each (original, synthesized) pair with ``eval/speaker.py`` on the
-device (WavLM-large + ECAPA-TDNN from ``--ecapa_checkpoint``, or the
-random-weight fbank variant without one, for pipeline smoke runs) and
+device, 64 pairs a batched call (WavLM-large + ECAPA-TDNN from
+``--ecapa_checkpoint``, or the random-weight fbank variant without one, for
+pipeline smoke runs) and
 prints the mean cosine; with ``--orig_emb_dir`` and ``--synth_emb_dir`` it
 pairs cached ``<utt>.npy`` embeddings instead
 (``python -m simwhisper_codec_tpu_torch.tools.speaker.extract_spk_emb``
@@ -20,10 +21,6 @@ from pathlib import Path
 import numpy as np
 
 from simwhisper_codec_tpu_torch.utils.audio_io import find_audio_files, load_audio
-
-
-def cosine(a: np.ndarray, b: np.ndarray) -> float:
-    return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
 
 
 def load_extractor(checkpoint: str = None, feat_type: str = None, device: str = "cuda"):
@@ -53,6 +50,7 @@ def main(argv=None) -> None:
                              "WavLM-large ECAPA scorer")
     parser.add_argument("--device", type=str, default="cuda", help="torch device (cuda or cpu)")
     args = parser.parse_args(argv)
+    from simwhisper_codec_tpu_torch.eval.speaker import PAIRS_PER_CALL, cosine
 
     if args.orig_emb_dir and args.synth_emb_dir:
         sims = []
@@ -64,11 +62,11 @@ def main(argv=None) -> None:
         return
 
     extractor = load_extractor(args.ecapa_checkpoint, device=args.device)
+    files = list(zip(find_audio_files(args.original_dir), find_audio_files(args.synthesized_dir)))
     sims = []
-    for o, s in zip(find_audio_files(args.original_dir), find_audio_files(args.synthesized_dir)):
-        eo = extractor.embed(load_audio(o, 16000), 16000)
-        es = extractor.embed(load_audio(s, 16000), 16000)
-        sims.append(cosine(eo, es))
+    for i in range(0, len(files), PAIRS_PER_CALL):  # a batched call of both rows of each pair
+        pairs = [(load_audio(o, 16000), load_audio(s, 16000)) for o, s in files[i:i + PAIRS_PER_CALL]]
+        sims += extractor.similarities(pairs, 16000).tolist()
     print(f"SIM mean over {len(sims)} pairs: {np.mean(sims):.4f}")
 
 

@@ -12,10 +12,12 @@ flags, the float32 matmul precision, deterministic algorithms), as
 ``warm_jit._aval_sig`` keys on the avals.
 
 On CUDA the first call of a signature
-  1. runs the function once, eagerly, on a side stream: that builds and
-     loads the kernel libraries (``ops/_cuda.py``), runs each kernel's
-     ``cudaFuncSetAttribute`` and sets up cuBLAS and cuDNN; its outputs are
-     the call's result;
+  1. runs the function once, eagerly, on a side stream (one a device for
+     the process: cuBLAS keeps a workspace for each stream it has run on
+     until the process ends, and each pins the cached memory around it):
+     that builds and loads the kernel libraries (``ops/_cuda.py``), runs
+     each kernel's ``cudaFuncSetAttribute`` and sets up cuBLAS and cuDNN;
+     its outputs are the call's result;
   2. copies the inputs into static buffers and captures the function into
      a graph, in the memory pool given (one per ``AudioCodec``, shared by
      both directions), with ``capture_error_mode="thread_local"`` so that
@@ -107,6 +109,16 @@ def _map(fn, out):
     return fn(out)
 
 
+_WARM_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _warm_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The side stream of every capture's warm-up call on ``dev``."""
+    if dev not in _WARM_STREAMS:
+        _WARM_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _WARM_STREAMS[dev]
+
+
 class GraphPool:
     """One CUDA graph memory pool, made at the first capture, for the programs given it."""
 
@@ -188,7 +200,7 @@ class CapturedProgram:
         dev = args[0].device
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = _warm_stream(dev)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             out = self.fn(*args)

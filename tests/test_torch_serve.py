@@ -64,6 +64,31 @@ def test_overload_503_and_body_cap_413():
         server.server_close()
 
 
+def test_close_runs_the_queued_requests_then_ends_the_batch_thread():
+    """A closed batcher lets its runner go: a server started again in the same
+    process (a test run, a benchmark) would otherwise keep every codec."""
+    entered, release = threading.Event(), threading.Event()
+
+    def runner(kind, payloads):
+        entered.set()
+        release.wait(timeout=30)
+        return [p * 2 for p in payloads]
+
+    batcher = MicroBatcher(runner, max_batch=4, window_ms=500.0)  # one micro-batch takes all three
+    results = []
+    threads = [threading.Thread(target=lambda i=i: results.append(batcher.submit("encode", i))) for i in range(3)]
+    for th in threads:
+        th.start()
+    assert entered.wait(timeout=30)
+    closer = threading.Thread(target=batcher.close, kwargs={"timeout": 30})
+    closer.start()
+    release.set()
+    for th in threads + [closer]:
+        th.join(timeout=30)
+    assert not any(th.is_alive() for th in threads + [closer]) and sorted(results) == [0, 2, 4]
+    assert not batcher._thread.is_alive() and batcher.stats()["served"] == 3
+
+
 def test_counters_survive_concurrent_updates():
     """Many threads add audio seconds at once; no update may be lost."""
     batcher = MicroBatcher(lambda kind, payloads: payloads)

@@ -240,7 +240,7 @@ def test_decode_errors_skip_and_scorer_errors_propagate(data, monkeypatch, capsy
     monkeypatch.setattr(tutmos.UTMOSScorer, "score", fail)
     with pytest.raises(RuntimeError, match="scorer failed"):
         calculate_utmos.main(["--input_dir", str(bad), "--ckpt", data["utmos"], "--device", "cpu"])
-    monkeypatch.setattr("simwhisper_codec_tpu_torch.eval.speaker.SpeakerEmbedder.embed", fail)
+    monkeypatch.setattr("simwhisper_codec_tpu_torch.eval.speaker.SpeakerEmbedder.embed_batch", fail)
     with pytest.raises(RuntimeError, match="scorer failed"):
         extract_spk_emb.main(["--input_dir", str(bad), "--emb_dir", str(data["tmp"] / "bad_emb2"),
                               "--ecapa_checkpoint", data["ecapa"], "--device", "cpu"])
