@@ -439,7 +439,7 @@ def kernel_phase(torch):
                                  "simwhisper_codec_tpu/ops/fused_convnext.py:38",
                                  "simwhisper_codec_tpu_torch/csrc/ln_ffn.cu", iters=10,
                                  library_chain_ms=lambda: library_chain_bf16(torch, *args)))
-        rows[-1]["pass_ms"] = pass_times(torch, fc.ffn_pass_timers("bf16", *args), rows[-1]["name"])
+        rows[-1]["pass_ms"] = pass_times(torch, fc.ffn_passes("bf16", *args)[0], rows[-1]["name"])
         w1q, s1 = quantize_weight(w1)
         w2q, s2 = quantize_weight(w2)
         args = (x, res, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps)
@@ -449,7 +449,7 @@ def kernel_phase(torch):
                                  "simwhisper_codec_tpu/ops/fused_convnext.py:296",
                                  "simwhisper_codec_tpu_torch/csrc/ln_ffn_int8.cu", iters=10,
                                  library_chain_ms=lambda: library_chain_int8(torch, *args)))
-        rows[-1]["pass_ms"] = pass_times(torch, fc.ffn_pass_timers("int8", *args), rows[-1]["name"])
+        rows[-1]["pass_ms"] = pass_times(torch, fc.ffn_passes("int8", *args)[0], rows[-1]["name"])
         # the same weights over the bench's rows (phase 7b, batch 16), compared only
         xb = randn(m * BENCH_BATCH // 8, c)
         resb = randn(*xb.shape) if vocos else xb
@@ -462,6 +462,7 @@ def kernel_phase(torch):
         del xb, resb, args
         torch.cuda.empty_cache()
     rows.append(check_convnext_dw(torch, randn, fc))
+    check_dw_fold(torch, randn, fc, rows)
     check_other_shapes(torch, randn, fa, fc, quantize_weight)
     return rows
 
@@ -559,8 +560,75 @@ def check_convnext_dw(torch, randn, fc):
                        "simwhisper_codec_tpu/ops/fused_convnext.py:195",
                        "simwhisper_codec_tpu_torch/csrc/convnext_dw.cu", iters=10, two_step_ms=two_step,
                        bf16_weights_ms=lambda: fc.fused_convnext_block_dw(x4, block_bf16, fv))
-    row["pass_ms"] = pass_times(torch, fc.ffn_pass_timers("dw", x4, block, fv), row["name"])
+    row["pass_ms"] = pass_times(torch, fc.ffn_passes("dw", x4, block, fv)[0], row["name"])
     return row
+
+
+def check_dw_fold(torch, randn, fc, rows) -> None:
+    """The Vocos blocks' int8 (B3) and fused (B2) chains with the depthwise
+    conv folded into the rows pass (``fused_convnext_block``) against the
+    plain chain they replace (the edge-mask multiply and
+    ``depthwise_conv1d_shifts``, then the unfolded kernel), bit for bit: the
+    rows pass's workspaces (xq, xs and the cleared hmax; xn) and the block's
+    output, at B x 3000 x 512 (B = 16, 8) with the edge at T, 1731, 1 and 0
+    (a device int32, as the codec hands it).  At B = 8 and the edge at T the
+    folded block and the chain are timed, and their rows passes (the folded
+    one against the plain conv plus the unfolded one): ``folded_ms`` /
+    ``chain_ms`` and ``folded_rows_ms`` / ``chain_rows_ms`` join the kernel
+    table's 512 x 4096 rows."""
+    from simwhisper_codec_tpu_torch.ops.conv import depthwise_conv1d_shifts
+    from simwhisper_codec_tpu_torch.ops.quant import quantize_stacked_convnext
+
+    dev = randn(1).device
+    t, c, inter = 3000, 512, 4096
+    block = random_block(torch, randn, c, inter)
+    quantize_stacked_convnext([block])
+    workspaces = {"int8": (12, 13, 14), "bf16": (10,)}
+    table = {kind: next(r for r in rows if r["name"] == f"ln_ffn_{kind}:{c}x{inter}") for kind in workspaces}
+    for b in (16, 8):
+        x = randn(b, t, c)
+        for fv in (t, 1731, 1, 0):
+            width = torch.tensor(fv, dtype=torch.int32, device=dev)
+            bound = fc.frame_bound(width, t, dev)
+
+            def conv():
+                mask = (torch.arange(t, device=dev) < width).to(x.dtype)[None, :, None]
+                return depthwise_conv1d_shifts(x * mask, block.dwconv.weight[:, 0, :].t(), block.dwconv.bias,
+                                               padding=3).reshape(-1, c)
+
+            for impl, kind in (("int8", "int8"), ("fused", "bf16")):
+                if kind == "int8":
+                    weights = (block.pw1_q, block.pw1_s, block.pwconv1.bias, block.pw2_q, block.pw2_s,
+                               block.pwconv2.bias)
+                    chain_kernel = fc.fused_ln_ffn_int8
+                else:
+                    weights = (block.pwconv1.weight, block.pwconv1.bias, block.pwconv2.weight, block.pwconv2.bias)
+                    chain_kernel = fc.fused_ln_ffn
+                rest = (block.norm.weight, block.norm.bias, *weights, block.gamma, 1e-6)
+                res = x.reshape(-1, c)
+                plain_run, plain = fc.ffn_passes(kind, conv(), res, *rest)
+                fold_run, fold = fc.ffn_passes(fc.FOLDED_KINDS[impl], x, block, bound)
+                plain_run["rows"]()
+                fold_run["rows"]()
+                torch.cuda.synchronize()
+                name = f"ln_ffn_{kind}:{c}x{inter} folded B={b} frame_valid={fv}"
+                for i in workspaces[kind]:
+                    if not torch.equal(plain[i].view(torch.uint8), fold[i].view(torch.uint8)):
+                        raise AssertionError(f"{name}: the rows pass's workspace {i} differs from the plain chain's")
+                chain = lambda: chain_kernel(conv(), res, *rest)
+                folded = lambda: fc.fused_convnext_block(x, block, impl, bound)
+                if not torch.equal(chain().view(x.shape).view(torch.int16), folded().view(torch.int16)):
+                    raise AssertionError(f"{name}: the block's output differs from the plain chain's")
+                log(f"[kernel] {name}: rows pass and output bit-equal to the plain chain's")
+                if b == 8 and fv == t:
+                    timed = {"folded_ms": time_ms(torch, folded, 10), "chain_ms": time_ms(torch, chain, 10),
+                             "folded_rows_ms": time_ms(torch, fold_run["rows"], 20),
+                             "chain_rows_ms": time_ms(torch, lambda: (conv(), plain_run["rows"]()), 10)}
+                    log(f"[kernel] {name}: {json.dumps(timed)}")
+                    table[kind].update(timed)
+            del plain, fold, plain_run, fold_run
+        del x
+        torch.cuda.empty_cache()
 
 
 def check_convnext_dw_shapes(torch, randn, fc):
@@ -779,7 +847,10 @@ def replay_kernel_counts(torch, cfg, codec, label, batch) -> dict:
     batch) under ``utils/profiling.trace``: each pass of each hand kernel
     appears in the trace as many times as ``expected_launches`` gives for one
     chunk each way, no other hand kernel appears, and the launch counts the
-    replays add are the same.  Returns events by kernel group."""
+    replays add are the same.  Then one detokenize replay traced alone: its
+    PyTorch elementwise kernels counted, and held to
+    ``DETOKENIZE_ELEMENTWISE`` where the run has a count there.  Returns
+    events by kernel group and that count."""
     from simwhisper_codec_tpu_torch.ops import _cuda
     from simwhisper_codec_tpu_torch.utils import profiling
 
@@ -809,7 +880,24 @@ def replay_kernel_counts(torch, cfg, codec, label, batch) -> dict:
         for frag in tool.GROUPS[group]:
             found[frag.strip(":<")] = got = sum(frag in k for k in kernels)
             assert got == n, f"{label}: {got} traced {frag} kernels in the replays, expected {n}"
-    return {"kernel_events": found, "kernels_traced": len(kernels)}
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiling.trace(logdir):
+            codec.inference_detokenize(codes, clen)
+            torch.cuda.synchronize()
+        (trace_file,) = Path(logdir).glob("*.pt.trace.json")
+        events = json.loads(trace_file.read_text())["traceEvents"]
+    elementwise = sum("elementwise" in e.get("name", "") for e in events if e.get("cat") == "kernel")
+    want_elementwise = DETOKENIZE_ELEMENTWISE.get(label)
+    assert want_elementwise in (None, elementwise), \
+        f"{label}: {elementwise} elementwise kernels in a detokenize replay, expected {want_elementwise}"
+    return {"kernel_events": found, "kernels_traced": len(kernels), "detokenize_elementwise": elementwise}
+
+
+# PyTorch elementwise kernels in one detokenize replay.  The Vocos blocks'
+# depthwise conv runs in the rows pass of B3 / B2: before that, as plain
+# PyTorch (an edge-mask multiply, a pad, 7 tap multiplies, 7 adds a block),
+# it put 1410 of them in a fast-int8 replay and 1482 in a fast one (H100).
+DETOKENIZE_ELEMENTWISE = {"fast-int8": 1027, "fast": 1099}
 
 
 def graph_check(torch, cfg, codec, label, batch, utts, enc, dec) -> dict:

@@ -21,16 +21,13 @@
 // intermediate there and needed block_t to divide T.  On Hopper the chain
 // runs as B2 runs it (see csrc/ln_ffn.cu for why no fused chain fits):
 //   1. convnext_dw_rows_kernel: a block owns ROWS time rows of one batch
-//      item and copies the masked window of rows t0 - 3 .. t0 + ROWS + 2
-//      (zeros outside [0, min(frame_valid, T))) into shared memory, indexed
-//      by (b, t), so a halo never reads a neighbouring item's rows and any
-//      T works (the last tile may be ragged; rows past T are not stored).
-//      The 7 x C taps and the bias sit in shared memory as f32: kept in
-//      registers they took 207 of them at C = 512.  A warp forms two
-//      neighbouring rows' xdw at once (8 window rows feed both, each tap
-//      is read once for both), normalises each with warp_layer_norm_regs
-//      and stores xn = bf16(LN(xdw)) -> workspace (B T, C).  Memory-bound:
-//      x read once (halos from L2), xn written once.
+//      item and forms their masked depthwise sums (zeros outside
+//      [0, min(frame_valid, T))) from a shared-memory window, as
+//      csrc/dw_rows.cuh sets out (its f32 sum), normalises each with
+//      warp_layer_norm_regs and stores xn = bf16(LN(xdw)) -> workspace
+//      (B T, C).  Any T works (the last tile may be ragged; rows past T are
+//      not stored).  Memory-bound: x read once (halos from L2), xn written
+//      once.
 //   2. convnext_dw_up_kernel: h = bf16(GELU(xn W1^T + b1)) -> workspace (B T, I);
 //   3. convnext_dw_down_kernel: out = bf16(x + gamma (h W2^T + b2)), or
 //      under tensor parallelism convnext_dw_down_partial_kernel: the f32
@@ -38,6 +35,7 @@
 //      added by the wrapper after the ranks' sum (the rows pass runs whole
 //      on every rank: C is not sharded).
 // The pass kernels are B2's, instantiated here under B4's names.
+#include "dw_rows.cuh"
 #include "ffn_bf16.cuh"
 
 namespace {
@@ -47,75 +45,16 @@ using ffn_bf16::DownEpilogue;
 using ffn_bf16::PartialDownEpilogue;
 using ffn_bf16::UpEpilogue;
 
-constexpr int TAPS = 7;
-constexpr int HALO = 3;
-constexpr int ROWS = 32;  // time rows of a row-kernel block (even: a warp takes two at a time)
-constexpr int ROWS_THREADS = 256;
-constexpr int WARPS = ROWS_THREADS / 32;
-constexpr int WIN = ROWS + 2 * HALO;
-
-// f32 taps (TAPS rows) and bias (one row), then the bf16 window (WIN rows)
-constexpr int rows_smem_bytes(int c) { return (TAPS + 1) * c * 4 + WIN * c * 2; }
-
 template <int NT>  // C = 64 * NT
-__global__ void __launch_bounds__(ROWS_THREADS, 2) convnext_dw_rows_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ dw_w, const bf16* __restrict__ dw_b,
-    const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b, bf16* __restrict__ xn, int T, int tiles,
-    const int* __restrict__ frame_valid, float eps) {
+__global__ void __launch_bounds__(dw_rows::THREADS, 2) convnext_dw_rows_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b, bf16* __restrict__ xn,
+    float eps, dw_rows::Args dw) {
   constexpr int C = 64 * NT;
-  constexpr int VPL = C / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* taps = reinterpret_cast<float*>(smem);             // (TAPS + 1) x C: w_dw[0..6], then b_dw
-  bf16* win = reinterpret_cast<bf16*>(taps + (TAPS + 1) * C);  // WIN x C: rows t0 - HALO ..
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.x / tiles, t0 = (blockIdx.x % tiles) * ROWS;
-  const bf16* xb = x + (size_t)b * T * C;
-  const int t_end = min(*frame_valid, T);
-
-  for (int i = tid; i < TAPS * C; i += ROWS_THREADS) taps[i] = bf(dw_w[i]);
-  for (int i = tid; i < C; i += ROWS_THREADS) taps[TAPS * C + i] = bf(dw_b[i]);
-  for (int i = tid; i < WIN * (C / 8); i += ROWS_THREADS) {
-    const int r = i / (C / 8), cv = i % (C / 8), t = t0 - HALO + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t >= 0 && t < t_end) v = *reinterpret_cast<const uint4*>(xb + (size_t)t * C + cv * 8);
-    *reinterpret_cast<uint4*>(&win[r * C + cv * 8]) = v;
-  }
-  __syncthreads();
-
-  // warp w: rows 2w and 2w + 1, then 2w + 2 WARPS, ...; output row r reads
-  // window rows r .. r + 6, so window row r + k is tap k of row r and tap
-  // k - 1 of row r + 1
-  const int rows = min(ROWS, T - t0);
-#pragma unroll 1
-  for (int r = 2 * warp; r < rows; r += 2 * WARPS) {
-    float v0[VPL], v1[VPL];
+  dw_rows::rows<NT, dw_rows::Sum::F32>(x, dw, ln_w, ln_b, eps, [&](size_t row, const float(&v)[C / 32]) {
+    const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) {
-      const int c = lane + 32 * i;
-      float a0 = taps[TAPS * C + c], a1 = a0, w = 0.f;
-#pragma unroll
-      for (int k = 0; k <= TAPS; ++k) {
-        const float xv = bf(win[(r + k) * C + c]);
-        if (k > 0) a1 = __fadd_rn(a1, __fmul_rn(xv, w));  // w = tap k - 1
-        if (k < TAPS) {
-          w = taps[k * C + c];
-          a0 = __fadd_rn(a0, __fmul_rn(xv, w));
-        }
-      }
-      v0[i] = a0;
-      v1[i] = a1;
-    }
-    warp_layer_norm_regs<VPL>(v0, ln_w, ln_b, eps);
-    warp_layer_norm_regs<VPL>(v1, ln_w, ln_b, eps);
-    bf16* o = xn + ((size_t)b * T + t0 + r) * C;
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) o[lane + 32 * i] = __float2bfloat16(v0[i]);
-    if (r + 1 < rows) {
-#pragma unroll
-      for (int i = 0; i < VPL; ++i) o[C + lane + 32 * i] = __float2bfloat16(v1[i]);
-    }
-  }
+    for (int i = 0; i < C / 32; ++i) xn[row * C + lane + 32 * i] = __float2bfloat16(v[i]);
+  });
 }
 
 FFN_PASS_KERNEL(convnext_dw_up_kernel, Bf16, UpEpilogue)
@@ -125,13 +64,13 @@ FFN_PASS_KERNEL(convnext_dw_down_partial_kernel, Bf16, PartialDownEpilogue)
 template <int NT>
 int rows_pass(const void* x, const void* dw_w, const void* dw_b, const void* ln_w, const void* ln_b, void* xn,
               int B, int T, const int* frame_valid, float eps, cudaStream_t s) {
-  constexpr int bytes = rows_smem_bytes(64 * NT);
+  constexpr int bytes = dw_rows::smem_bytes(64 * NT);
   const cudaError_t e = sm90::allow_smem(convnext_dw_rows_kernel<NT>, bytes);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = (T + ROWS - 1) / ROWS;
-  convnext_dw_rows_kernel<NT><<<B * tiles, ROWS_THREADS, bytes, s>>>(
-      (const bf16*)x, (const bf16*)dw_w, (const bf16*)dw_b, (const bf16*)ln_w, (const bf16*)ln_b, (bf16*)xn, T,
-      tiles, frame_valid, eps);
+  const dw_rows::Args dw{(const bf16*)dw_w, (const bf16*)dw_b, frame_valid, T,
+                         (T + dw_rows::ROWS - 1) / dw_rows::ROWS};
+  convnext_dw_rows_kernel<NT><<<B * dw.tiles, dw_rows::THREADS, bytes, s>>>((const bf16*)x, (const bf16*)ln_w,
+                                                                             (const bf16*)ln_b, (bf16*)xn, eps, dw);
   return (int)cudaGetLastError();
 }
 

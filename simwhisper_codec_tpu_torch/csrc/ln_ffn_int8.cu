@@ -18,7 +18,13 @@
 // (which would be 4 M I bytes written and read: 393 MB at 512 x 4096 and
 // M = 24000, against ~0.08 ms to recompute one int8 product):
 //   1. ln_ffn_int8_rows_kernel: LN, row absmax, xs, xq = rint(v / xs) ->
-//      workspaces xq (M, C) s8 and xs (M,) f32; clears the row's hmax;
+//      workspaces xq (M, C) s8 and xs (M,) f32; clears the row's hmax.  Its
+//      DW instantiation (ln_ffn_int8_dw: the Vocos ConvNeXt block, x its
+//      (B, T, C) input and residual) first forms each row's masked
+//      depthwise k7 conv in registers from a shared-memory window, rounded
+//      where the plain chain rounds (csrc/dw_rows.cuh, BF16_CHAIN), so xq
+//      and xs equal those of the plain conv followed by the plain row
+//      kernel, and xdw never reaches device memory;
 //   2. ln_ffn_int8_upmax_kernel: the s8 product xq W1q^T; its epilogue forms
 //      h and keeps only each row's |h| max: quad shuffles, then one
 //      atomicMax on the float bits per row and tile (|h| >= 0, so the bit
@@ -43,6 +49,7 @@
 // quantisation boundary.  hq is clamped to [-127, 127], which changes
 // nothing when the two passes agree (|h| <= hmax) and keeps an int8 from
 // wrapping if they did not.
+#include "dw_rows.cuh"
 #include "ffn_sm90.cuh"
 
 namespace {
@@ -51,26 +58,45 @@ using ffn_sm90::S8;
 
 constexpr int ROWS_THREADS = 256;  // 8 warps, one row each
 
-template <int NT>  // C = 64 * NT
-__global__ void __launch_bounds__(ROWS_THREADS) ln_ffn_int8_rows_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b,
-    int8_t* __restrict__ xq, float* __restrict__ xs_out, unsigned* __restrict__ hmax, int M, float eps) {
-  constexpr int C = 64 * NT;
-  const int row = blockIdx.x * (ROWS_THREADS / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= M) return;
-  float v[C / 32];
-  warp_layer_norm<C / 32>(x + (size_t)row * C, ln_w, ln_b, eps, true, v);
+// a LayerNormed row v (lane l holds channels l, l + 32, ...) -> its xq row,
+// xs = max|v| / 127 (1 for a zero row), and the row's hmax cleared
+template <int VPL>
+__device__ __forceinline__ void quantise_row(const float (&v)[VPL], size_t row, int8_t* __restrict__ xq,
+                                             float* __restrict__ xs_out, unsigned* __restrict__ hmax) {
+  constexpr int C = VPL * 32;
+  const int lane = threadIdx.x & 31;
   float amax = 0.f;
 #pragma unroll
-  for (int i = 0; i < C / 32; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  for (int i = 0; i < VPL; ++i) amax = fmaxf(amax, fabsf(v[i]));
   amax = warp_max(amax);
   float xs = amax / 127.0f;
   if (xs == 0.f) xs = 1.f;
 #pragma unroll
-  for (int i = 0; i < C / 32; ++i) xq[(size_t)row * C + lane + 32 * i] = (int8_t)rintf(v[i] / xs);
+  for (int i = 0; i < VPL; ++i) xq[row * C + lane + 32 * i] = (int8_t)rintf(v[i] / xs);
   if (lane == 0) {
     xs_out[row] = xs;
     hmax[row] = 0u;
+  }
+}
+
+// C = 64 * NT; DW: x is a Vocos block's (B, T, C) input and each row is its
+// depthwise conv (``dw``, a block per ROWS time rows of one item), else x is
+// (M, C) rows, one warp a row (``dw`` unread)
+template <int NT, bool DW>
+__global__ void __launch_bounds__(ROWS_THREADS, DW ? 2 : 1) ln_ffn_int8_rows_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b,
+    int8_t* __restrict__ xq, float* __restrict__ xs_out, unsigned* __restrict__ hmax, int M, float eps,
+    dw_rows::Args dw) {
+  constexpr int C = 64 * NT;
+  if constexpr (DW) {
+    dw_rows::rows<NT, dw_rows::Sum::BF16_CHAIN>(
+        x, dw, ln_w, ln_b, eps, [&](size_t row, const float(&v)[C / 32]) { quantise_row(v, row, xq, xs_out, hmax); });
+  } else {
+    const int row = blockIdx.x * (ROWS_THREADS / 32) + (threadIdx.x >> 5);
+    if (row >= M) return;
+    float v[C / 32];
+    warp_layer_norm<C / 32>(x + (size_t)row * C, ln_w, ln_b, eps, true, v);
+    quantise_row(v, row, xq, xs_out, hmax);
   }
 }
 
@@ -235,21 +261,31 @@ FFN_PASS_KERNEL(ln_ffn_int8_upq_kernel, S8, UpQuantEpilogue)
 FFN_PASS_KERNEL(ln_ffn_int8_down_kernel, S8, DownEpilogue)
 FFN_PASS_KERNEL(ln_ffn_int8_down_partial_kernel, S8, PartialDownEpilogue)
 
-template <int NT>
+// the rows pass over M rows; with DW over x (B, T, C), M = B T, its conv's operands in ``dw``
+template <int NT, bool DW>
 int rows_pass(const void* x, const void* ln_w, const void* ln_b, void* xq, void* xs, void* hmax, int M, float eps,
-              cudaStream_t s) {
-  const int grid = (M + ROWS_THREADS / 32 - 1) / (ROWS_THREADS / 32);
-  ln_ffn_int8_rows_kernel<NT><<<grid, ROWS_THREADS, 0, s>>>((const bf16*)x, (const bf16*)ln_w, (const bf16*)ln_b,
-                                                            (int8_t*)xq, (float*)xs, (unsigned*)hmax, M, eps);
+              dw_rows::Args dw, cudaStream_t s) {
+  const auto kernel = ln_ffn_int8_rows_kernel<NT, DW>;
+  int grid = (M + ROWS_THREADS / 32 - 1) / (ROWS_THREADS / 32), bytes = 0;
+  if constexpr (DW) {
+    static_assert(ROWS_THREADS == dw_rows::THREADS, "the DW rows pass runs dw_rows' blocks");
+    bytes = dw_rows::smem_bytes(64 * NT);
+    const cudaError_t e = sm90::allow_smem(kernel, bytes);
+    if (e != cudaSuccess) return (int)e;
+    grid = M / dw.T * dw.tiles;
+  }
+  kernel<<<grid, ROWS_THREADS, bytes, s>>>((const bf16*)x, (const bf16*)ln_w, (const bf16*)ln_b, (int8_t*)xq,
+                                          (float*)xs, (unsigned*)hmax, M, eps, dw);
   return (int)cudaGetLastError();
 }
 
+template <bool DW>
 int rows_pass_any(int C, const void* x, const void* ln_w, const void* ln_b, void* xq, void* xs, void* hmax, int M,
-                  float eps, cudaStream_t s) {
+                  float eps, dw_rows::Args dw, cudaStream_t s) {
   switch (C / 64) {
 #define CASE(NT) \
   case NT:       \
-    return rows_pass<NT>(x, ln_w, ln_b, xq, xs, hmax, M, eps, s);
+    return rows_pass<NT, DW>(x, ln_w, ln_b, xq, xs, hmax, M, eps, dw, s);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6)
     CASE(7) CASE(8) CASE(9) CASE(10) CASE(11) CASE(12)
 #undef CASE
@@ -258,26 +294,11 @@ int rows_pass_any(int C, const void* x, const void* ln_w, const void* ln_b, void
   }
 }
 
-}  // namespace
-
-// Passes, a bit each (1 rows, 2 up-max, 4 up-quantise, 8 down, 16 partial
-// down: out (M, C) f32, b2 may be null, res not read; the wrapper runs all
-// but one of the downs, in one launch, or in two around the hmax reduction
-// under tensor parallelism; a timer one at a time).  C a multiple of 64 up to 768, I a
-// multiple of 64; x, res and the bf16 vectors contiguous bf16, W1q (I, C)
-// and W2q (C, I) contiguous int8, s1 (I,) and s2 (C,) f32; workspaces xq
-// (M, C) int8, xs (M,) f32, hmax (M,) 32-bit, hq (M, I) int8; g_* the
-// tensor-map geometries of xq, W1q, hq and W2q
-// (ops/fused_convnext.py::ffn_tile_maps).  Returns 0, or the first error of
-// the passes: a CUDA error or sm90::TENSOR_MAP_ERROR + the driver's CUresult.
-extern "C" int ln_ffn_int8(const void* x, const void* res, const void* ln_w, const void* ln_b, const void* w1q,
-                           const void* s1, const void* b1, const void* w2q, const void* s2, const void* b2,
-                           const void* gamma, void* out, void* xq, void* xs, void* hmax, void* hq, int M, int C,
-                           int I, float eps, const long long* g_xq, const long long* g_w1, const long long* g_hq,
-                           const long long* g_w2, int passes, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int err = 0;
-  if (passes & 1) err = rows_pass_any(C, x, ln_w, ln_b, xq, xs, hmax, M, eps, s);
+// passes 2-16 of ``passes`` (bit 1, the rows pass, is the caller's), after ``err``
+int later_passes(int err, const void* res, const void* w1q, const void* s1, const void* b1, const void* w2q,
+                 const void* s2, const void* b2, const void* gamma, void* out, void* xq, void* xs, void* hmax,
+                 void* hq, int M, int C, int I, const long long* g_xq, const long long* g_w1, const long long* g_hq,
+                 const long long* g_w2, int passes, cudaStream_t s) {
   const UpArgs up{(const float*)xs, (const float*)s1, (const bf16*)b1, (unsigned*)hmax, M, I};
   constexpr int UP_BN = ffn_sm90::UP_BN;
   if (err == 0 && (passes & 6) && g_w1[11] != UP_BN) err = (int)cudaErrorInvalidValue;
@@ -307,4 +328,51 @@ extern "C" int ln_ffn_int8(const void* x, const void* res, const void* ln_w, con
     });
   }
   return err;
+}
+
+}  // namespace
+
+// Passes, a bit each (1 rows, 2 up-max, 4 up-quantise, 8 down, 16 partial
+// down: out (M, C) f32, b2 may be null, res not read; the wrapper runs all
+// but one of the downs, in one launch, or in two around the hmax reduction
+// under tensor parallelism; a timer one at a time).  C a multiple of 64 up to 768, I a
+// multiple of 64; x, res and the bf16 vectors contiguous bf16, W1q (I, C)
+// and W2q (C, I) contiguous int8, s1 (I,) and s2 (C,) f32; workspaces xq
+// (M, C) int8, xs (M,) f32, hmax (M,) 32-bit, hq (M, I) int8; g_* the
+// tensor-map geometries of xq, W1q, hq and W2q
+// (ops/fused_convnext.py::ffn_tile_maps).  Returns 0, or the first error of
+// the passes: a CUDA error or sm90::TENSOR_MAP_ERROR + the driver's CUresult.
+extern "C" int ln_ffn_int8(const void* x, const void* res, const void* ln_w, const void* ln_b, const void* w1q,
+                           const void* s1, const void* b1, const void* w2q, const void* s2, const void* b2,
+                           const void* gamma, void* out, void* xq, void* xs, void* hmax, void* hq, int M, int C,
+                           int I, float eps, const long long* g_xq, const long long* g_w1, const long long* g_hq,
+                           const long long* g_w2, int passes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = 0;
+  if (passes & 1) err = rows_pass_any<false>(C, x, ln_w, ln_b, xq, xs, hmax, M, eps, dw_rows::Args{}, s);
+  return later_passes(err, res, w1q, s1, b1, w2q, s2, b2, gamma, out, xq, xs, hmax, hq, M, C, I, g_xq, g_w1, g_hq,
+                      g_w2, passes, s);
+}
+
+// The Vocos ConvNeXt block's int8 chain with its depthwise conv folded into
+// the rows pass: ln_ffn_int8's arguments with x (B, T, C) the block input,
+// read by the rows pass as the conv's input and by the down pass as the
+// residual (res is x), M = B T, then the conv's taps dw_w (7, C) and bias
+// dw_b (C,) contiguous bf16, the edge frame_valid as a device int32 (rows
+// [0, min(*frame_valid, T)) unmasked), B and T.  Passes 16 (partial down)
+// is refused: under tensor parallelism the chain runs the plain conv.
+extern "C" int ln_ffn_int8_dw(const void* x, const void* res, const void* ln_w, const void* ln_b, const void* w1q,
+                              const void* s1, const void* b1, const void* w2q, const void* s2, const void* b2,
+                              const void* gamma, void* out, void* xq, void* xs, void* hmax, void* hq, int M, int C,
+                              int I, float eps, const long long* g_xq, const long long* g_w1, const long long* g_hq,
+                              const long long* g_w2, const void* dw_w, const void* dw_b, const void* frame_valid,
+                              int B, int T, int passes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || T < 1 || M != B * T || (passes & 16)) return (int)cudaErrorInvalidValue;
+  const dw_rows::Args dw{(const bf16*)dw_w, (const bf16*)dw_b, (const int*)frame_valid, T,
+                         (T + dw_rows::ROWS - 1) / dw_rows::ROWS};
+  int err = 0;
+  if (passes & 1) err = rows_pass_any<true>(C, x, ln_w, ln_b, xq, xs, hmax, M, eps, dw, s);
+  return later_passes(err, res, w1q, s1, b1, w2q, s2, b2, gamma, out, xq, xs, hmax, hq, M, C, I, g_xq, g_w1, g_hq,
+                      g_w2, passes, s);
 }

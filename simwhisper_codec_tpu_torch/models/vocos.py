@@ -10,12 +10,16 @@ beyond it before every conv, and the ISTFT envelope ends there, so a fixed
 T-frame run reproduces the reference's shorter-array output.  Nothing
 reads the tensor on the host, so one captured graph serves every width.
 
-Block impls: ``None`` (exact GELU, parity mode), ``"fused"`` (plain
+Block impls: ``None`` (exact GELU, parity mode), ``"fused"`` (the
 depthwise conv, then ``csrc/ln_ffn.cu``), ``"fused-dw"`` (the whole block,
 depthwise conv and edge mask included, in ``csrc/convnext_dw.cu``) and
-``"int8"`` (plain depthwise conv, then ``csrc/ln_ffn_int8.cu``; needs
-``ops.quant.quantize_stacked_convnext``).  The residual of a block is its
-*unmasked* input, as in the JAX package.
+``"int8"`` (the depthwise conv, then ``csrc/ln_ffn_int8.cu``; needs
+``ops.quant.quantize_stacked_convnext``).  On a CUDA device ``"fused"`` and
+``"int8"`` run the masked conv inside their kernel's rows pass, rounded as
+the plain conv (``ops/conv.py``) rounds, so the outputs are the plain
+chain's bit for bit; on the CPU and under tensor parallelism the conv runs
+plain.  The residual of a block is its *unmasked* input, as in the JAX
+package.
 
 Under tensor parallelism (``parallel/mesh.py::shard_model``) a block holds
 its slice of the intermediate width and a ``model_group``; every impl
@@ -57,13 +61,23 @@ class ConvNeXtBlock(nn.Module):
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], impl=None,
-                frame_valid=None) -> torch.Tensor:
-        """``mask`` is ``edge_mask`` of ``frame_valid``; ``fused-dw`` reads the bound itself."""
+                frame_valid=None, bound: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask`` is ``edge_mask`` of ``frame_valid``.  On a CUDA device
+        without a model group, ``int8`` and ``fused`` fold the depthwise conv
+        into their kernel's rows pass, which reads ``bound``, ``frame_valid``
+        as ``ops.fused_convnext.frame_bound``'s device int32 (made here when
+        not given); ``fused-dw`` reads the bound itself."""
         group = self.model_group
         if impl == "fused-dw":
             from simwhisper_codec_tpu_torch.ops.fused_convnext import fused_convnext_block_dw
 
             return fused_convnext_block_dw(x, self, frame_valid, eps=1e-6, group=group)
+        if impl in ("int8", "fused") and group is None and x.device.type != "cpu":
+            from simwhisper_codec_tpu_torch.ops.fused_convnext import frame_bound, fused_convnext_block
+
+            if bound is None:
+                bound = frame_bound(frame_valid, x.shape[1], x.device)
+            return fused_convnext_block(x, self, impl, bound, eps=1e-6)
         residual = x
         if mask is not None:
             x = x * mask
@@ -117,11 +131,16 @@ class Vocos(nn.Module):
         """(B, T, input_channels) -> waveform (B, T * hop), lengths * hop."""
         bb = self.backbone
         mask = edge_mask(mel.shape[1], frame_valid, mel.dtype, mel.device)
+        bound = None
+        if impl in ("int8", "fused") and mel.device.type != "cpu":  # the edge the folded blocks read, made once
+            from simwhisper_codec_tpu_torch.ops.fused_convnext import frame_bound
+
+            bound = frame_bound(frame_valid, mel.shape[1], mel.device)
         x = mel if mask is None else mel * mask
         x = conv1d(x, bb.embed.weight, bb.embed.bias, padding=3)
         x = layer_norm(x, bb.norm, eps=1e-6)
         for block in bb.convnext:
-            x = block(x, mask, impl, frame_valid)
+            x = block(x, mask, impl, frame_valid, bound)
         x = layer_norm(x, bb.final_layer_norm, eps=1e-6)
         x = linear(x, self.head.out)
         n_freq = self.cfg.n_fft // 2 + 1

@@ -162,6 +162,8 @@ def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:
+    """The current CUDA stream of ``device``; any other device raises ValueError."""
+    require(device.type == "cuda", f"unsupported device {device}")
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 

@@ -11,6 +11,9 @@ before the LayerNorm, then runs B2's passes) through workspaces allocated
 here, with the TMA geometry of every GEMM operand from ``operand_map``.
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; there is no fallback between the two.
+``fused_convnext_block`` runs a Vocos block's B2 or B3 chain with the
+depthwise conv folded into the rows pass (``csrc/dw_rows.cuh``), rounded as
+the plain conv rounds, on CUDA tensors only.
 
 All (M, C) rows; weights in ``nn.Linear`` layout: W1 (I, C), W2 (C, I).
 As in the JAX wrappers, every operand is cast to x.dtype first (the int8
@@ -149,7 +152,7 @@ def fused_ln_ffn_int8_partial_plain(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2=None
 
 
 def _check_rows(x, residual, c_max=768):
-    _cuda.require(x.device.type == "cuda", f"unsupported device {x.device}")
+    """The rows' checks, on any device (``meta`` plans a call; the launch requires CUDA)."""
     _cuda.require(x.dtype == torch.bfloat16, f"fused LN-FFN kernels take bfloat16, got {x.dtype}")
     _cuda.require(x.dim() == 2 and x.is_contiguous(), "x must be a contiguous (M, C) tensor")
     _cuda.require(residual.shape == x.shape and residual.dtype == x.dtype and residual.is_contiguous()
@@ -294,7 +297,8 @@ def _dw_taps(block, dt):
 
 
 def frame_bound(frame_valid, t: int, device) -> torch.Tensor:
-    """B4's edge as the int32 (1,) tensor its row kernel reads on the device:
+    """The edge as the int32 (1,) tensor that the row kernels with a depthwise
+    conv (B4's, and B2's and B3's folded rows pass) read on the device:
     ``frame_valid`` clipped to [0, T].  ``frame_valid`` is None (T), an int
     (>= 0), or a tensor on ``device`` (a chunk width that a CUDA graph takes
     as an input: clipped there, with no host read)."""
@@ -337,6 +341,33 @@ def _convnext_dw_args(x, block, frame_valid=None, eps=1e-6, b2=None, block_ns=No
     return args, tensors, f"{c}x{inter}"
 
 
+def _folded_args(int8: bool, x, block, bound, eps=1e-6, block_ns=None):
+    """Check the operands and build the argument list of ``ln_ffn_int8_dw``
+    (``int8``: ``ops.quant.quantize_stacked_convnext``'s weights) or
+    ``ln_ffn_bf16_dw`` (all but ``passes``) for a Vocos ConvNeXt block's input
+    x (B, T, C) on any device (``meta`` plans it): ``ln_ffn_int8``'s or
+    ``ln_ffn_bf16``'s over the B T rows with x as the residual, then the
+    depthwise taps (7, C), its bias, the edge ``bound`` (``frame_bound``'s
+    device int32), B and T.  The tensors are the unfolded kind's, at the same
+    places, with the conv's three after them."""
+    _cuda.require(x.dtype == torch.bfloat16 and x.dim() == 3, "x must be a bfloat16 (B, T, C) tensor")
+    _cuda.require(isinstance(bound, torch.Tensor) and bound.shape == (1,) and bound.dtype == torch.int32
+                  and bound.device == x.device, f"bound must be frame_bound's int32 (1,) on {x.device}")
+    x = x.contiguous()  # the first block's input is a transposed view of the embedding conv's output
+    b, t, c = x.shape
+    rows = x.view(b * t, c)
+    norm, pw1, pw2 = block.norm, block.pwconv1, block.pwconv2
+    if int8:
+        args, tensors, shape = _ln_ffn_int8_args(rows, rows, norm.weight, norm.bias, block.pw1_q, block.pw1_s, pw1.bias,
+                                                 block.pw2_q, block.pw2_s, pw2.bias, block.gamma, eps, block_ns)
+    else:
+        args, tensors, shape = _ln_ffn_bf16_args(rows, rows, norm.weight, norm.bias, pw1.weight, pw1.bias, pw2.weight,
+                                                 pw2.bias, block.gamma, eps, block_ns)
+    dw_w, dw_b = _dw_taps(block, x.dtype)
+    conv = [dw_w.contiguous(), _vec(dw_b, c, x.dtype, x.device), bound]
+    return [*args, *map(_cuda.ptr, conv), _cuda.c_int(b), _cuda.c_int(t)], tensors + conv, shape
+
+
 _FFN = {  # kind -> (library, C entry point, launch-count key, argument-list function, passes, index of ``out`` among the tensors)
     "bf16": ("ln_ffn", "ln_ffn_bf16", "ln_ffn_bf16", _ln_ffn_bf16_args, BF16_PASSES, 9),
     "int8": ("ln_ffn_int8", "ln_ffn_int8", "ln_ffn_int8", _ln_ffn_int8_args, INT8_PASSES, 11),
@@ -347,7 +378,14 @@ _FFN = {  # kind -> (library, C entry point, launch-count key, argument-list fun
                      functools.partial(_ln_ffn_int8_args, partial=True), INT8_PARTIAL_PASSES, 11),
     "dw-partial": ("convnext_dw", "convnext_dw_bf16", "convnext_dw_partial",
                    functools.partial(_convnext_dw_args, partial=True), BF16_PARTIAL_PASSES, 10),
+    # a Vocos block's chain with its depthwise conv in the rows pass, counted under the unfolded key
+    "int8-folded": ("ln_ffn_int8", "ln_ffn_int8_dw", "ln_ffn_int8", functools.partial(_folded_args, True),
+                    INT8_PASSES, 11),
+    "bf16-folded": ("ln_ffn", "ln_ffn_bf16_dw", "ln_ffn_bf16", functools.partial(_folded_args, False),
+                    BF16_PASSES, 9),
 }
+# the Vocos block impl -> the kind that runs it with the conv folded in (a CUDA x, no model group)
+FOLDED_KINDS = {"int8": "int8-folded", "fused": "bf16-folded"}
 
 
 def _ffn_launch(kind: str, *operands, reduce_max=None, **build_kw):
@@ -368,12 +406,14 @@ def _ffn_launch(kind: str, *operands, reduce_max=None, **build_kw):
     return tensors[out_index]
 
 
-def ffn_pass_timers(kind: str, *operands, block_ns: Optional[tuple] = None) -> dict:
-    """Pass name -> a callable that launches that pass alone on ``operands``
-    (the wrapper's arguments; CUDA tensors), for timing each pass.  The
-    passes share one set of workspaces, which the callables keep alive, so
-    run them in order once before timing one alone.  These launches bypass
-    the wrapper and are not counted.  ``block_ns`` as in ``ffn_tile_maps``."""
+def ffn_passes(kind: str, *operands, block_ns: Optional[tuple] = None):
+    """(pass name -> a callable that launches that pass alone on
+    ``operands``, the tensors they run on): the wrapper's arguments (CUDA
+    tensors) as the argument-list function of ``kind`` checks them, for
+    timing each pass and reading its workspaces.  The passes share one set
+    of workspaces, which the callables keep alive, so run them in order once
+    before timing one alone.  These launches bypass the wrapper and are not
+    counted.  ``block_ns`` as in ``ffn_tile_maps``."""
     lib, fn, _, build, passes, _ = _FFN[kind]
     args, tensors, _ = build(*operands, block_ns=block_ns)
     stream = _cuda.stream(tensors[0].device)
@@ -386,7 +426,7 @@ def ffn_pass_timers(kind: str, *operands, block_ns: Optional[tuple] = None) -> d
         if err != 0:
             raise RuntimeError(f"{fn} pass {bit} failed: CUDA error {err}")
 
-    return {name: functools.partial(run_pass, bit) for name, bit in passes.items()}
+    return {name: functools.partial(run_pass, bit) for name, bit in passes.items()}, tensors
 
 
 def rank_bias(b2, first: bool):
@@ -466,6 +506,20 @@ def fused_ln_ffn_int8(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma=N
     if x.device.type == "cpu":
         return fused_ln_ffn_int8_plain(x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps)
     return _ffn_launch("int8", x, residual, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, gamma, eps)
+
+
+def fused_convnext_block(x: torch.Tensor, block, impl: str, bound: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """A Vocos ConvNeXt block in ``impl`` "int8" (B3, ``csrc/ln_ffn_int8.cu``)
+    or "fused" (B2, ``csrc/ln_ffn.cu``) on a CUDA x (B, T, C), with its masked
+    depthwise conv folded into the rows pass (``csrc/dw_rows.cuh``): bit for
+    bit what x times the edge mask, ``ops.conv.depthwise_conv1d_shifts`` and
+    then ``fused_ln_ffn_int8`` / ``fused_convnext_ffn`` (residual x) give on
+    the card, with no xdw in device memory.  ``bound`` is ``frame_bound``'s
+    device int32 (a Vocos forward makes it once for its blocks).  One launch
+    count under the unfolded kernel's key; any other device raises
+    ValueError (the CPU runs the plain chain, ``models/vocos.py``)."""
+    _cuda.require(impl in FOLDED_KINDS, f"impl must be one of {tuple(FOLDED_KINDS)}, got {impl!r}")
+    return _ffn_launch(FOLDED_KINDS[impl], x, block, bound, eps).view(x.shape)
 
 
 def _dw_sum_plain(x: torch.Tensor, block, frame_valid) -> torch.Tensor:

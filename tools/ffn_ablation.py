@@ -94,7 +94,7 @@ def main() -> int:
             ops = operands(torch, m, c, inter, eps, vocos)
             picked = (fc.UP_BLOCK_N, fc.block_n(m, c))
             for kind, widths in itertools.product(ops, itertools.product((fc.UP_BLOCK_N,), fc.BLOCK_NS)):
-                timers = fc.ffn_pass_timers(kind, *ops[kind], block_ns=widths)
+                timers = fc.ffn_passes(kind, *ops[kind], block_ns=widths)[0]
                 for run in timers.values():
                     run()
                 row = {"gpu": gpu, "shape": f"{c}x{inter}", "m": m, "kind": kind, "up_bn": widths[0],
