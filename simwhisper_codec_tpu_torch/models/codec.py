@@ -9,16 +9,15 @@ Counterpart of ``simwhisper_codec_tpu/models/codec.py`` (reference
 ``SimWhisperCodec`` holds the weights under the reference's state-dict keys
 (``acoustic_encoder``, ``downsample``, ``upsample``, ``acoustic_decoder``,
 ``vocos``); its constants are non-persistent buffers.  ``AudioCodec`` keeps
-the reference's chunk arithmetic (stride = 30 s - overlap, valid-region
-extraction, final ``length // 1280`` trim), pads every batch to
-``batch_size`` and passes the chunk width as a virtual right edge, exactly
-as the JAX package does.  As the JAX package runs each direction as one
+the reference's chunk arithmetic (``ChunkGrid``: stride = 30 s - overlap,
+each chunk's first stride kept, final ``length // 1280`` trim), pads every
+batch to ``batch_size`` and passes the chunk width as a virtual right edge,
+exactly as the JAX package does.  As that runs each direction as one
 ``jax.jit`` program per padded shape, ``AudioCodec`` runs ``tokenize`` and
 ``detokenize`` as ``utils/aot.py`` programs: on the card each signature is
 captured once as a CUDA graph of the hand kernels and replayed after;
 ``trace_counts`` counts the signatures.  The chunk width reaches
-``detokenize`` as a device scalar, so one detokenize graph serves every
-last-chunk width.
+``detokenize`` as a device scalar, so one graph serves every last width.
 
 Modes: ``parity`` (f32, dense attention, exact GELU), ``fast`` (bf16, the
 pflash attention kernel and the fused LN-FFN kernel in every transformer FFN
@@ -51,10 +50,11 @@ axis (``parallel.mesh.batch_rows`` / ``gather_rows``).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import logging
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -339,6 +339,56 @@ class HostStaging:
         return host.numpy()
 
 
+@dataclasses.dataclass(frozen=True)
+class ChunkGrid:
+    """Where ``encode``, ``decode`` and the streaming sessions cut a batch:
+    chunks of ``chunk`` samples every ``stride`` (30 s - overlap), each
+    keeping its first ``kept`` code frames, written end to end; decode's
+    chunks are ``chunk_codes`` frames every ``kept``.  A row's length applies
+    once, in the trim to ``length // hop`` codes (``codes * up`` samples)
+    after the download: ``tokenize`` gives ceil(ceil(n / 160) // 2 / 4) >=
+    n // 1280 code frames and ``detokenize`` ``codes * up`` samples, which
+    cover every kept position the trim keeps, except where the stride is not
+    whole code frames (odd seconds): each chunk then loses half a frame and
+    the trim keeps columns past a later chunk's ``codes_lengths``, which
+    encode zeroes for those grids (``masked``), as the reference does."""
+
+    chunk: int  # samples a chunk
+    stride: int  # samples from one chunk's start to the next's
+    chunk_codes: int  # code frames a chunk
+    kept: int  # code frames each chunk keeps (decode's stride)
+    hop: int  # input samples a code frame
+    up: int  # output samples a code frame
+
+    @classmethod
+    def of(cls, cfg: CodecConfig, overlap_seconds: int) -> "ChunkGrid":
+        sr, hop = cfg.input_sample_rate, cfg.encoder_downsample_rate
+        chunk, stride = cfg.max_audio_seconds * sr, (cfg.max_audio_seconds - overlap_seconds) * sr
+        return cls(chunk, stride, chunk // hop, stride // hop, hop, cfg.decoder_upsample_rate)
+
+    @property
+    def masked(self) -> bool:
+        return self.stride % self.hop != 0
+
+    def chunks(self, lengths: np.ndarray, codes: bool = False) -> tuple:
+        """Chunk starts and ends over the longest of ``lengths`` (samples, or
+        code frames for ``codes``), and each row's length in each chunk (K, B)."""
+        size, step = (self.chunk_codes, self.kept) if codes else (self.chunk, self.stride)
+        longest = int(lengths.max())
+        starts = np.arange(0, longest, step)  # every chunk holds some of the longest row
+        ends = np.minimum(starts + size, longest)
+        return starts, ends, np.clip(lengths[None, :] - starts[:, None], 0, (ends - starts)[:, None])
+
+
+def wire_waveform(y: torch.Tensor, wire: str, samples: Optional[int] = None) -> torch.Tensor:
+    """Decoded waveforms (B, T), cut to their first ``samples``, in the
+    ``wire``'s format: float32, or on ``pcm16`` int16 by ``to_pcm16``'s formula."""
+    y = y[:, :samples]
+    if wire == "pcm16":
+        return torch.clamp(y.to(torch.float32) * 32768.0, -32768.0, 32767.0).to(torch.int16)
+    return y.to(torch.float32)
+
+
 class AudioCodec:
     """User-facing codec with the reference's API shape (chunked encode/decode)."""
 
@@ -424,21 +474,19 @@ class AudioCodec:
     def inference_tokenize(self, wav, input_lengths) -> dict:
         """wav (B, T <= chunk_samples) -> codes (device tensors).
 
-        ``wav`` and ``input_lengths`` are host arrays, or tensors on the
+        ``wav`` and ``input_lengths`` are host arrays, staged as ``encode``
+        stages its batch (``_pack_waves``, one upload), or tensors on the
         codec's device (``encode`` passes slices of its uploaded batch).
         int16 input is PCM16: it ships as int16 and is dequantised (x / 32768,
-        exact in f32) on the device.  On the ``pcm16`` wire float host input
-        is first quantised to int16 on the host.  The padding to the chunk
-        and to the batch, and this rank's rows, are taken on the device."""
+        exact in f32) on the device.  The padding to the chunk and to the
+        batch, and this rank's rows, are taken on the device."""
         with annotate("codec.tokenize.host", step="stage"):
             n = self.cfg.chunk_samples
             if not isinstance(wav, torch.Tensor):
                 wav = np.asarray(wav)
-                if self.wire == "pcm16" and wav.dtype != np.int16:
-                    wav = to_pcm16(wav)
-                wav = wav[:, :n].astype(np.int16 if wav.dtype == np.int16 else np.float32)  # a copy, contiguous
-                wav = torch.from_numpy(wav).to(self.device)
-                input_lengths = torch.from_numpy(np.asarray(input_lengths).astype(np.int64)).to(self.device)
+                _, len_host = self._pack_waves(list(wav), min(wav.shape[1], n), (len(wav),))
+                len_host[:] = input_lengths
+                wav, input_lengths = self._wav_staging.upload()
             wav = wav[:, :n]
             b, t = wav.shape
             wav = wav.to(torch.float32) * (1.0 / 32768.0) if wav.dtype == torch.int16 else wav.to(torch.float32)
@@ -461,16 +509,17 @@ class AudioCodec:
                              out_samples: Optional[int] = None) -> dict:
         """codes (G, B, T <= code_frames) -> waveform (device tensors).
 
-        ``codes`` and ``codes_lengths`` are host arrays, or tensors on the
-        codec's device (``decode`` passes slices of its uploaded batch); the
-        padding to the chunk and to the batch is done on the device.  On the
-        ``pcm16`` wire the waveform is quantised to int16 on the device and
-        cut there to its first ``out_samples`` samples."""
+        ``codes`` and ``codes_lengths`` are host arrays, staged in one
+        upload, or tensors on the codec's device (``decode`` passes slices of
+        its uploaded batch); the padding to the chunk and to the batch is
+        done on the device.  The waveform comes back in the wire's format,
+        cut to its first ``out_samples`` samples (``wire_waveform``)."""
         with annotate("codec.detokenize.host", step="stage"):
+            g, b, t = np.shape(codes)
             if not isinstance(codes, torch.Tensor):
-                codes = torch.from_numpy(np.asarray(codes).astype(np.int32)).to(self.device)
-                codes_lengths = torch.from_numpy(np.asarray(codes_lengths).astype(np.int64)).to(self.device)
-            g, b, t = codes.shape
+                codes_host, len_host = self._code_staging.pack(((g, b, t), torch.int32), ((b,), torch.int64))
+                codes_host[:], len_host[:] = codes, codes_lengths
+                codes, codes_lengths = self._code_staging.upload()
             width = chunk_width if chunk_width is not None else t
             bp = self._pad_batch_dim(b)
             rows = self._dist.rows(bp)
@@ -484,22 +533,34 @@ class AudioCodec:
             attrs["source"] = self._detokenize.source
         with annotate("codec.detokenize.host", step="unpack"):
             out = {k: dist_ctx.all_gather_rows(self._dist, v) for k, v in out.items()}
-            if self.wire == "pcm16":
-                y = torch.clamp(out["y"].to(torch.float32) * 32768.0, -32768.0, 32767.0).to(torch.int16)
-                out = dict(out, y=y[:, :out_samples] if out_samples is not None else y)
             if bp != b:
                 out = {"y": out["y"][:b], "output_length": out["output_length"][:b]}
+            out["y"] = wire_waveform(out["y"], self.wire, out_samples)
         return out
 
+    def _pack_waves(self, rows: Sequence[np.ndarray], width: int, lengths_shape: tuple) -> List[np.ndarray]:
+        """1-D waveforms packed for ``_wav_staging.upload``, zero past each row: int16 on the ``pcm16``
+        wire or when every row is int16 (float rows by ``to_pcm16``), else float32 (int16 rows as
+        x / 32768); then an int64 array of ``lengths_shape``, left to the caller."""
+        wire16 = self.wire == "pcm16" or all(w.dtype == np.int16 for w in rows)
+        wav_host, lens_host = self._wav_staging.pack(
+            ((len(rows), width), torch.int16 if wire16 else torch.float32), (lengths_shape, torch.int64))
+        for out, w in zip(wav_host, rows):
+            w = w[:width]
+            if wire16 and w.dtype != np.int16:
+                w = to_pcm16(w)
+            if not wire16 and w.dtype == np.int16:
+                np.divide(w, np.float32(32768.0), out=out[: len(w)], dtype=np.float32)
+            else:
+                out[: len(w)] = w
+            out[len(w):] = 0
+        return [wav_host, lens_host]
+
     # -- chunked streaming (reference model.py:244-373) ------------------------
-    #
-    # A call's batch lives on the device from its one upload to its one
-    # download: the rows are packed once into host memory the codec reuses
-    # (page-locked on CUDA) with each chunk's lengths, copied up in one copy,
-    # cut into chunks, padded, run and masked on the device, each chunk's
-    # result written at its offset in one device tensor, and that tensor
-    # copied home once, after the last chunk.  Nothing inside the chunk loop
-    # waits for the device.
+    # A call's batch is packed once into reused host memory (page-locked on CUDA) with each chunk's
+    # lengths and uploaded in one copy; its ``ChunkGrid`` chunks are padded and run on the device, each
+    # chunk's kept columns copied to their place in one device tensor, and that is downloaded once,
+    # after the last chunk, and cut to each row's length.  Nothing in the loop waits for the device.
 
     def encode(self, wav_list: List[np.ndarray], overlap_seconds: int = 10) -> dict:
         """List of 1-D waveforms (float, or int16 PCM read as int16 / 32768)
@@ -512,61 +573,38 @@ class AudioCodec:
         pack / stage / unpack), ``codec.tokenize.program`` and
         ``codec.tokenize.fetch`` spans."""
         with annotate("codec.encode", rows=len(wav_list), staging=self._wav_staging.kind) as attrs:
-            return self._encode(wav_list, overlap_seconds, attrs)
+            return self._encode(wav_list, ChunkGrid.of(self.cfg, overlap_seconds), attrs)
 
-    def _encode(self, wav_list: List[np.ndarray], overlap_seconds: int, attrs: dict) -> dict:
+    def _encode(self, wav_list: List[np.ndarray], grid: ChunkGrid, attrs: dict) -> dict:
         with annotate("codec.tokenize.host", step="pack"):
-            duration_seconds = self.max_audio_seconds - overlap_seconds
-            chunk_size = self.max_audio_seconds * self.input_sample_rate
-            duration_size = duration_seconds * self.input_sample_rate
-            code_duration_length = duration_size // self.encoder_downsample_rate
-
-            batch_size = len(wav_list)
-            input_lengths = np.array([len(w) for w in wav_list], np.int64)
-            max_length = int(input_lengths.max())
-            starts = np.arange(0, max_length, duration_size)  # every chunk holds some of the longest row
-            ends = np.minimum(starts + chunk_size, max_length)
-            wire16 = self.wire == "pcm16" or all(np.asarray(w).dtype == np.int16 for w in wav_list)
-            wav_host, lens_host = self._wav_staging.pack(
-                ((batch_size, max_length), torch.int16 if wire16 else torch.float32),
-                ((len(starts), batch_size), torch.int64))
-            for i, w in enumerate(wav_list):
-                w = np.asarray(w).reshape(-1)
-                if wire16 and w.dtype != np.int16:
-                    w = to_pcm16(w)
-                if not wire16 and w.dtype == np.int16:
-                    np.divide(w, np.float32(32768.0), out=wav_host[i, : len(w)], dtype=np.float32)
-                else:
-                    wav_host[i, : len(w)] = w
-                wav_host[i, len(w):] = 0
-            lens_host[:] = np.clip(input_lengths[None, :] - starts[:, None], 0, (ends - starts)[:, None])
+            rows = [np.asarray(w).reshape(-1) for w in wav_list]
+            lengths = np.array([len(w) for w in rows], np.int64)
+            starts, ends, chunk_lengths = grid.chunks(lengths)
+            _, lens_host = self._pack_waves(rows, int(lengths.max()), chunk_lengths.shape)
+            lens_host[:] = chunk_lengths
         with annotate("codec.tokenize.host", step="stage"):
             wav_dev, lens_dev = self._wav_staging.upload()
 
-        codes_dev = None
+        codes_dev, w = None, grid.kept
         for k, (start, end) in enumerate(zip(starts.tolist(), ends.tolist())):
             result = self.inference_tokenize(wav_dev[:, start:end], lens_dev[k])
             with annotate("codec.tokenize.host", step="unpack"):
-                codes = result["codes"][:, :, :code_duration_length]
-                w = codes.shape[2]
+                codes = result["codes"][:, :, :w]
                 if codes_dev is None:
-                    codes_dev = codes.new_empty((codes.shape[0], batch_size, len(starts) * w))
-                valid = result["codes_lengths"].clamp(0, code_duration_length)
-                keep = torch.arange(w, device=codes.device)[None, :] < valid[:, None]
-                torch.mul(codes, keep.to(codes.dtype), out=codes_dev[:, :, k * w:(k + 1) * w])
+                    codes_dev = codes.new_empty((codes.shape[0], len(rows), len(starts) * w))
+                if grid.masked:
+                    codes = codes * (torch.arange(w, device=codes.device) < result["codes_lengths"][:, None]).int()
+                codes_dev[:, :, k * w:(k + 1) * w] = codes
         attrs["chunks"] = len(starts)
 
         attrs["fetches"] = int(codes_dev is not None)  # none when every row is empty
         if codes_dev is not None:
             with annotate("codec.tokenize.fetch"):
-                codes_tensor = self._wav_staging.download(codes_dev)
+                codes_host = self._wav_staging.download(codes_dev)
         with annotate("codec.tokenize.host", step="unpack"):
-            if codes_dev is not None:
-                codes_list = [codes_tensor[:, i, : input_lengths[i] // self.encoder_downsample_rate]
-                              for i in range(batch_size)]
-            else:
-                codes_list = [np.zeros((self.num_groups, 0), np.int32) for _ in range(batch_size)]
-        return {"codes_list": codes_list}
+            if codes_dev is None:
+                codes_host = np.zeros((self.num_groups, len(rows), 0), np.int32)
+            return {"codes_list": [codes_host[:, i, : n // grid.hop] for i, n in enumerate(lengths)]}
 
     def decode(self, codes_list: List[np.ndarray], overlap_seconds: int = 10) -> dict:
         """List of (G, T_i) code arrays -> {"syn_wav_list": [(T_i * 1280,)]}: f32
@@ -576,58 +614,40 @@ class AudioCodec:
         ``codec.detokenize.host`` (``step``: pack / stage / unpack),
         ``codec.detokenize.program`` and ``codec.detokenize.fetch`` spans."""
         with annotate("codec.decode", rows=len(codes_list), staging=self._code_staging.kind) as attrs:
-            return self._decode(codes_list, overlap_seconds, attrs)
+            return self._decode(codes_list, ChunkGrid.of(self.cfg, overlap_seconds), attrs)
 
-    def _decode(self, codes_list: List[np.ndarray], overlap_seconds: int, attrs: dict) -> dict:
+    def _decode(self, codes_list: List[np.ndarray], grid: ChunkGrid, attrs: dict) -> dict:
         with annotate("codec.detokenize.host", step="pack"):
-            duration_seconds = self.max_audio_seconds - overlap_seconds
-            chunk_code_length = self.max_audio_seconds * self.input_sample_rate // self.encoder_downsample_rate
-            duration_code_length = duration_seconds * self.input_sample_rate // self.encoder_downsample_rate
-            duration_wav_length = duration_code_length * self.decoder_upsample_rate
-
             batch_size = len(codes_list)
-            code_lengths = np.array([c.shape[-1] for c in codes_list], np.int64)
-            max_code_length = int(code_lengths.max())
-            starts = np.arange(0, max_code_length, duration_code_length)  # every chunk holds some of the longest
-            ends = np.minimum(starts + chunk_code_length, max_code_length)
+            lengths = np.array([c.shape[-1] for c in codes_list], np.int64)
+            starts, ends, chunk_lengths = grid.chunks(lengths, codes=True)
             codes_host, lens_host = self._code_staging.pack(
-                ((self.num_groups, batch_size, max_code_length), torch.int32),
-                ((len(starts), batch_size), torch.int64))
+                ((self.num_groups, batch_size, int(lengths.max())), torch.int32), (chunk_lengths.shape, torch.int64))
             for i, c in enumerate(codes_list):
                 codes_host[:, i, : c.shape[-1]] = np.asarray(c)
                 codes_host[:, i, c.shape[-1]:] = 0
-            lens_host[:] = np.clip(code_lengths[None, :] - starts[:, None], 0, (ends - starts)[:, None])
+            lens_host[:] = chunk_lengths
         with annotate("codec.detokenize.host", step="stage"):
             codes_dev, lens_dev = self._code_staging.upload()
 
-        wav_dev = None
+        wav_dev, w = None, grid.kept * grid.up
         for k, (start, end) in enumerate(zip(starts.tolist(), ends.tolist())):
-            # only the first stride's worth of each chunk is kept
-            result = self.inference_detokenize(codes_dev[:, :, start:end], lens_dev[k],
-                                               chunk_width=end - start, out_samples=duration_wav_length)
+            y = self.inference_detokenize(codes_dev[:, :, start:end], lens_dev[k], chunk_width=end - start,
+                                          out_samples=w)["y"]
             with annotate("codec.detokenize.host", step="unpack"):
-                y = result["y"][:, :duration_wav_length]
-                y = y if y.dtype == torch.int16 else y.to(torch.float32)
-                w = y.shape[1]
                 if wav_dev is None:
                     wav_dev = y.new_empty((batch_size, len(starts) * w))
-                valid = result["output_length"].clamp(0, duration_wav_length)
-                keep = torch.arange(w, device=y.device)[None, :] < valid[:, None]
-                torch.mul(y, keep.to(y.dtype), out=wav_dev[:, k * w:(k + 1) * w])
+                wav_dev[:, k * w:(k + 1) * w] = y
         attrs["chunks"] = len(starts)
 
         attrs["fetches"] = int(wav_dev is not None)  # none when every row is empty
         if wav_dev is not None:
             with annotate("codec.detokenize.fetch"):
-                wav_tensor = self._code_staging.download(wav_dev)
+                wav_host = self._code_staging.download(wav_dev)
         with annotate("codec.detokenize.host", step="unpack"):
-            if wav_dev is not None:
-                syn_wav_list = [wav_tensor[i, : code_lengths[i] * self.decoder_upsample_rate]
-                                for i in range(batch_size)]
-            else:
-                out_dtype = np.int16 if self.wire == "pcm16" else np.float32
-                syn_wav_list = [np.zeros((0,), out_dtype) for _ in range(batch_size)]
-        return {"syn_wav_list": syn_wav_list}
+            if wav_dev is None:
+                wav_host = wire_waveform(torch.zeros((batch_size, 0)), self.wire).numpy()
+            return {"syn_wav_list": [wav_host[i, : n * grid.up] for i, n in enumerate(lengths)]}
 
     @classmethod
     def load_from_checkpoint(cls, config_path: str, ckpt_path: str, **kwargs) -> "AudioCodec":

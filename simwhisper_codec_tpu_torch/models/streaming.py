@@ -1,13 +1,9 @@
-"""Streaming codec sessions: incremental encode/decode over the chunk grid.
+"""Streaming codec sessions (counterpart of ``simwhisper_codec_tpu/models/streaming.py``).
 
-Counterpart of ``simwhisper_codec_tpu/models/streaming.py``.  Push audio
-samples in, pull code frames out as soon as each 30 s window's stride of
-context is there: the chunk arithmetic of ``AudioCodec.encode``/``decode``
-(stride = 30 s - overlap), and the same one-utterance calls at the same
-padded batch shape, so a flushed session gives the batch call's codes bit
-for bit.  The latency floor is the stride (the algorithm's look-ahead).
-The codec's single-chunk calls return device tensors; the sessions bring
-them to host numpy arrays.
+Push audio in, pull code frames out as soon as each 30 s window's stride of context is there: the
+``ChunkGrid`` of ``AudioCodec.encode``/``decode`` and the same one-utterance calls at the same padded
+batch shape, so a flushed session gives the batch call's codes bit for bit.  The latency floor is the
+stride (the algorithm's look-ahead).  Results come home through the codec's ``HostStaging``.
 """
 
 from __future__ import annotations
@@ -15,16 +11,8 @@ from __future__ import annotations
 from typing import Iterator, List, Optional
 
 import numpy as np
-import torch
 
-from simwhisper_codec_tpu_torch.models.codec import AudioCodec
-
-
-def _host(x: torch.Tensor) -> np.ndarray:
-    """A device tensor -> numpy (int16 PCM as it is, other floats as float32)."""
-    if x.is_floating_point():
-        x = x.to(torch.float32)
-    return x.cpu().numpy()
+from simwhisper_codec_tpu_torch.models.codec import AudioCodec, ChunkGrid
 
 
 class StreamingEncoder:
@@ -32,44 +20,41 @@ class StreamingEncoder:
 
     def __init__(self, codec: AudioCodec, overlap_seconds: int = 10):
         self.codec = codec
-        self.chunk_size = codec.max_audio_seconds * codec.input_sample_rate
-        self.duration_size = (codec.max_audio_seconds - overlap_seconds) * codec.input_sample_rate
-        self.code_duration = self.duration_size // codec.encoder_downsample_rate
+        self.grid = ChunkGrid.of(codec.cfg, overlap_seconds)
         self._buffer = np.zeros(0, np.float32)
         self._total = 0
 
     def feed(self, samples: np.ndarray) -> Optional[np.ndarray]:
-        """Append samples; returns (G, code_duration) codes when a stride
-        completes, else None."""
+        """Append samples; returns (G, kept) codes when a stride completes,
+        else None.  int16 samples are taken as they are, not as x / 32768
+        (``encode`` reads int16 as PCM), as the JAX package's session does."""
         samples = np.asarray(samples, np.float32).reshape(-1)
         self._buffer = np.concatenate([self._buffer, samples])
         self._total += len(samples)
-        if len(self._buffer) >= self.chunk_size:
-            return self._emit(self._buffer[: self.chunk_size], full=True)
+        if len(self._buffer) >= self.grid.chunk:
+            codes = self._codes(self._buffer[: self.grid.chunk])[:, : self.grid.kept]
+            self._buffer = self._buffer[self.grid.stride:]
+            return codes
         return None
 
-    def _emit(self, window: np.ndarray, full: bool) -> np.ndarray:
+    def _codes(self, window: np.ndarray) -> np.ndarray:
+        """The window's codes (G, T) up to the program's length for it."""
         result = self.codec.inference_tokenize(window[None, :], np.array([len(window)]))
-        codes = _host(result["codes"])[:, 0, :]
-        code_len = int(result["codes_lengths"][0])
-        keep = min(code_len, self.code_duration) if full else code_len
-        if full:
-            self._buffer = self._buffer[self.duration_size:]
-        return codes[:, :keep]
+        fetch = self.codec._wav_staging.download
+        return fetch(result["codes"][:, 0, :])[:, : int(fetch(result["codes_lengths"])[0])]
 
     def flush(self) -> Optional[np.ndarray]:
-        """Codes of the stream's tail, as the batch chunk loop makes them: the
-        tail runs as further strided windows, trimmed to
-        total_samples // downsample_rate."""
-        total_codes = self._total // self.codec.encoder_downsample_rate
-        emitted = (self._total - len(self._buffer)) // self.codec.encoder_downsample_rate
+        """The tail's codes as the batch call makes them: further strided
+        windows, trimmed to total_samples // hop."""
+        total_codes = self._total // self.grid.hop
+        emitted = (self._total - len(self._buffer)) // self.grid.hop
         outs: List[np.ndarray] = []
         while emitted < total_codes and len(self._buffer) > 0:
-            codes = self._emit(self._buffer[: self.chunk_size], full=False)
-            keep = min(codes.shape[1], self.code_duration, total_codes - emitted)
+            codes = self._codes(self._buffer[: self.grid.chunk])
+            keep = min(codes.shape[1], self.grid.kept, total_codes - emitted)
             outs.append(codes[:, :keep])
             emitted += keep
-            self._buffer = self._buffer[self.duration_size:]
+            self._buffer = self._buffer[self.grid.stride:]
         return np.concatenate(outs, axis=1) if outs else None
 
 
@@ -78,35 +63,30 @@ class StreamingDecoder:
 
     def __init__(self, codec: AudioCodec, overlap_seconds: int = 10):
         self.codec = codec
-        self.chunk_codes = codec.max_audio_seconds * codec.input_sample_rate // codec.encoder_downsample_rate
-        self.duration_codes = ((codec.max_audio_seconds - overlap_seconds) * codec.input_sample_rate
-                               // codec.encoder_downsample_rate)
+        self.grid = ChunkGrid.of(codec.cfg, overlap_seconds)
         self._buffer = np.zeros((codec.num_groups, 0), np.int32)
 
     def feed(self, codes: np.ndarray) -> Optional[np.ndarray]:
         """Append (G, T) codes; returns a waveform stride when one is complete."""
         self._buffer = np.concatenate([self._buffer, np.asarray(codes, np.int32)], axis=1)
-        if self._buffer.shape[1] >= self.chunk_codes:
-            return self._emit(self._buffer[:, : self.chunk_codes], full=True)
+        if self._buffer.shape[1] >= self.grid.chunk_codes:
+            return self._emit(self.grid.kept)
         return None
 
-    def _emit(self, window: np.ndarray, full: bool) -> np.ndarray:
+    def _emit(self, keep: int) -> np.ndarray:
+        """The next window's first ``keep`` code frames decoded; the buffer moves on a stride."""
+        window = self._buffer[:, : self.grid.chunk_codes]
         t = window.shape[1]
-        result = self.codec.inference_detokenize(window[:, None, :], np.array([t]), chunk_width=t)
-        keep = self.duration_codes if full else t
-        wav = _host(result["y"][0, : keep * self.codec.decoder_upsample_rate])
-        if full:
-            self._buffer = self._buffer[:, self.duration_codes:]
-        return wav
+        y = self.codec.inference_detokenize(window[:, None, :], np.array([t]), chunk_width=t,
+                                            out_samples=keep * self.grid.up)["y"]
+        self._buffer = self._buffer[:, self.grid.kept:]
+        return self.codec._code_staging.download(y[0])
 
     def flush(self) -> Optional[np.ndarray]:
         """The tail as further strided windows (the batch call's chunks)."""
         outs: List[np.ndarray] = []
         while self._buffer.shape[1] > 0:
-            window = self._buffer[:, : self.chunk_codes]
-            wav = self._emit(window, full=False)
-            outs.append(wav[: min(self.duration_codes, window.shape[1]) * self.codec.decoder_upsample_rate])
-            self._buffer = self._buffer[:, self.duration_codes:]
+            outs.append(self._emit(min(self.grid.kept, self._buffer.shape[1])))
         return np.concatenate(outs) if outs else None
 
 

@@ -7,9 +7,12 @@ slice, mask and concatenate in numpy around ``inference_tokenize`` /
  - ragged batches whose rows end before, at and across chunk boundaries,
    fewer and more rows than ``batch_size``, a row shorter than one code
    frame, float32 and int16 input on the ``float32`` and ``pcm16`` wires,
-   through plain stand-ins for the two programs that read the padding, mask
-   nothing and give short lengths (so the codec's padding and masks decide
-   the result), and once through the codec's own programs;
+   an odd-second stride (whose grid keeps encode's mask), through plain
+   stand-ins for the two programs that read the padding, mask nothing and
+   give the lengths the real programs give, and once through the codec's
+   own programs; the streaming sessions on the grid the batch calls read;
+ - the programs' lengths cover every position the final trim keeps, for
+   every overlap, except encode's on odd-second strides (``ChunkGrid.masked``);
  - the arrays a call returned are not touched by the next call;
  - on the card (marked ``chip``; run there with ``python -m pytest
    --noconftest -m chip tests/test_torch_codec_staging.py``), the batch is
@@ -22,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from simwhisper_codec_tpu_torch.models.codec import AudioCodec, init_params
+from simwhisper_codec_tpu_torch.models import codec as codec_mod
+from simwhisper_codec_tpu_torch.models.codec import AudioCodec, ChunkGrid, init_params
+from simwhisper_codec_tpu_torch.models.streaming import StreamingDecoder, StreamingEncoder
 from simwhisper_codec_tpu_torch.utils import profiling
 from simwhisper_codec_tpu_torch.utils.audio_io import to_pcm16
 
@@ -105,10 +110,18 @@ def reference_decode(codec, codes_list, overlap_seconds=10):
 @pytest.fixture(scope="module")
 def model():
     """ONE_LAYER with its latent projection scaled x30, so that the codes span
-    the FSQ levels (at the raw init every code is the zero level)."""
+    the FSQ levels (at the raw init every code is the zero level).  Both
+    programs run once first at two code frames, on one thread: the first
+    multi-threaded call of a vectorised sin / cos / exp / log / erf in a
+    process picks its implementation lazily, and one thread's block of it
+    can come out with other roundings, which the codec-against-reference
+    comparisons would read as a difference."""
     m = init_params(ONE_LAYER)
     with torch.no_grad():
         m.downsample.to_latent.weight.mul_(30.0)
+        codec_mod.tokenize(m, torch.zeros(1, 2 * HOP), torch.tensor([2 * HOP]))
+        codec_mod.detokenize(m, torch.zeros((ONE_LAYER.quantizer.num_groups, 1, 2), dtype=torch.int32),
+                             torch.tensor([2]), 2)
     return m
 
 
@@ -141,26 +154,34 @@ class Plain:
         return self.fn(*args)
 
 
+def code_lengths(n):
+    """The programs' length rule for n samples: ceil(n / 160) mel frames (at
+    most a chunk's), the encoder's // 2, the frame stack's ceil(/ 4)."""
+    mel = ((n + ONE_LAYER.mel_hop_length - 1) // ONE_LAYER.mel_hop_length).clip(max=ONE_LAYER.mel_frames)
+    stack = ONE_LAYER.downsample.stack_factor
+    return (mel // ONE_LAYER.acoustic_encoder.stride_size + stack - 1) // stack
+
+
 def plain_tokenize(wav, lengths):
     """Codes from every sample of each frame, padding included, nothing masked,
-    and half the frames' lengths: the codec's padding and its masks (which the
-    final trim to each row's length hides when a program's lengths cover it)
-    decide the result."""
+    and the real programs' lengths: the codec's padding and the final trim to
+    each row's length decide the result."""
     b, n = wav.shape
     q = torch.round(wav * 32768.0).to(torch.int64).view(b, n // HOP, HOP).sum(-1)  # exact in any order
     groups = ONE_LAYER.quantizer.num_groups
     codes = torch.stack([(q + 7 * g) % 4096 for g in range(groups)]).to(torch.int32)
-    return {"zq": torch.zeros(b, n // HOP, 1), "codes": codes, "codes_lengths": lengths // (2 * HOP)}
+    return {"zq": torch.zeros(b, n // HOP, 1), "codes": codes, "codes_lengths": code_lengths(lengths)}
 
 
 def plain_detokenize(codes, lengths, width):
-    """A waveform from each frame's codes, its position and the chunk width;
-    nothing masked, half the samples' lengths."""
+    """A waveform in [-0.5, 0.5) from each frame's codes, its position and the
+    chunk width, in integers (exact on any thread); nothing masked, the real
+    programs' lengths."""
     t = codes.shape[2]
-    frame = codes.sum(0).to(torch.float32).repeat_interleave(HOP, dim=1)
-    pos = torch.arange(t * HOP, dtype=torch.float32)
-    y = 0.5 * torch.sin(0.01 * frame + 0.001 * pos + 0.1 * width.to(torch.float32))
-    return {"y": y, "output_length": lengths * HOP // 2}
+    frame = codes.sum(0).to(torch.int64).repeat_interleave(HOP, dim=1)
+    pos = torch.arange(t * HOP)
+    y = ((7 * frame + 13 * pos + 101 * width.to(torch.int64)) % 65536 - 32768).to(torch.float32) / 65536
+    return {"y": y, "output_length": lengths * HOP}
 
 
 def make_codec(model, batch_size, wire="float32", programs="plain"):
@@ -170,31 +191,102 @@ def make_codec(model, batch_size, wire="float32", programs="plain"):
     return codec
 
 
+def case(seconds, batch_size, kind, wire, programs, overlap=10, streams=False):
+    return seconds, batch_size, kind, wire, programs, overlap, streams
+
+
 CASES = {
     # two chunks (stride 20 s): rows ending inside the first stride, on it, on the first chunk's end and past it
-    "ragged_more_rows_than_batch": ([15, 20, 30, 35.7], 2, "float32", "float32", "plain"),
-    "fewer_rows_than_batch": ([12.5, 18], 3, "float32", "float32", "plain"),
-    "int16_on_float_wire": ([9, 19], 2, "int16", "float32", "plain"),
-    "mixed_on_float_wire": ([9, 19], 2, "mixed", "float32", "plain"),
-    "float_on_pcm16_wire": ([9, 19], 2, "float32", "pcm16", "plain"),
-    "int16_on_pcm16_wire": ([19, 3], 2, "int16", "pcm16", "plain"),
-    "row_shorter_than_a_code_frame": ([700 / SR, 12], 2, "float32", "float32", "plain"),
+    "ragged_more_rows_than_batch": case([15, 20, 30, 35.7], 2, "float32", "float32", "plain"),
+    "fewer_rows_than_batch": case([12.5, 18], 3, "float32", "float32", "plain"),
+    "int16_on_float_wire": case([9, 19], 2, "int16", "float32", "plain"),
+    "mixed_on_float_wire": case([9, 19], 2, "mixed", "float32", "plain"),
+    "float_on_pcm16_wire": case([9, 19], 2, "float32", "pcm16", "plain"),
+    "int16_on_pcm16_wire": case([19, 3], 2, "int16", "pcm16", "plain"),
+    "row_shorter_than_a_code_frame": case([700 / SR, 12], 2, "float32", "float32", "plain"),
+    # stride 21 s, half a code frame over: the 42 s row ends on chunk 2's start, where the trim keeps a column
+    "odd_stride_keeps_the_mask": case([42, 50, 20.7], 2, "float32", "float32", "plain", 9),
+    # stride 14 s, four chunks: the streaming sessions on the longest row give the batch calls' results
+    "sessions_read_the_batch_grid": case([47, 20.5], 2, "float32", "float32", "plain", 16, streams=True),
     # the codec's own programs, two chunks each way
-    "model_programs": ([25, 8.5], 2, "float32", "float32", "model"),
+    "model_programs": case([25, 8.5], 2, "float32", "float32", "model"),
 }
 
 
+def streamed(session, items, block):
+    """Everything ``session`` gives for ``items`` fed ``block`` at a time, its flush included."""
+    outs = [session.feed(items[..., i:i + block]) for i in range(0, items.shape[-1], block)] + [session.flush()]
+    return np.concatenate([o for o in outs if o is not None], axis=-1)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_device_staged_round_trip_is_the_host_staged_one(model, case):
-    seconds, batch_size, kind, wire, programs = CASES[case]
+def test_device_staged_round_trip_is_the_host_staged_one(model, case, monkeypatch):
+    seconds, batch_size, kind, wire, programs, overlap, streams = CASES[case]
     codec = make_codec(model, batch_size, wire, programs)
+    grids, of = [], ChunkGrid.of
+    monkeypatch.setattr(ChunkGrid, "of", staticmethod(lambda cfg, o: grids.append(of(cfg, o)) or grids[-1]))
     wavs = waves(np.random.default_rng(len(case)), seconds, kind)
-    codes = codec.encode(wavs)["codes_list"]
-    want_codes = reference_encode(codec, wavs)
+    codes = codec.encode(wavs, overlap)["codes_list"]
+    want_codes = reference_encode(codec, wavs, overlap)
     assert_bit_equal(codes, want_codes)
     assert all(len(np.unique(c)) > 1 for c in codes if c.size)
     assert [c.shape for c in codes] == [(ONE_LAYER.quantizer.num_groups, len(w) // HOP) for w in wavs]
-    assert_bit_equal(codec.decode(codes)["syn_wav_list"], reference_decode(codec, want_codes))
+    decoded = codec.decode(codes, overlap)["syn_wav_list"]
+    assert_bit_equal(decoded, reference_decode(codec, want_codes, overlap))
+    if streams:
+        i = int(np.argmax(seconds))  # a session's chunks are the batch's for its longest row
+        assert_bit_equal([streamed(StreamingEncoder(codec, overlap), wavs[i], 12345)], [codes[i]])
+        assert_bit_equal([streamed(StreamingDecoder(codec, overlap), codes[i], 37)], [decoded[i]])
+    assert grids == [of(ONE_LAYER, overlap)] * (4 if streams else 2)
+
+
+EDGE_SAMPLES = (0, 1, 159, 160, 1279, 1280, 1281)
+GRIDS = [ChunkGrid.of(ONE_LAYER, overlap) for overlap in range(30)]
+
+
+@pytest.fixture(scope="module")
+def program_lengths(model):
+    """The codec's own programs' lengths, one call each: samples 0, 1, a mel
+    hop and a code frame each side, the chunk and the stride +- 1; code
+    frames 0, 1, the chunk's and the kept frames +- 1; the strides of the
+    default overlap and an odd one (each row of 30 s costs the CPU)."""
+    codec = make_codec(model, batch_size=1, programs="model")
+    chunk, chunk_codes = ONE_LAYER.chunk_samples, ONE_LAYER.code_frames
+    samples = sorted({*EDGE_SAMPLES, chunk, *(GRIDS[o].stride + d for o in (10, 9) for d in (-1, 1))})
+    frames = sorted({0, 1, chunk_codes, *(GRIDS[o].kept + d for o in (10, 9) for d in (-1, 1))})
+    n, c = torch.tensor(samples), torch.tensor(frames)
+    codes = torch.zeros((ONE_LAYER.quantizer.num_groups, len(c), chunk_codes), dtype=torch.int32)
+    with torch.no_grad():
+        tok = codec._tokenize(torch.zeros(len(n), chunk), n)["codes_lengths"]
+        detok = codec._detokenize(codes, c, torch.tensor(chunk_codes, dtype=torch.int32))["output_length"]
+    return dict(zip(samples, tok.tolist())), dict(zip(frames, detok.tolist()))
+
+
+@pytest.mark.parametrize("overlap", range(30))
+def test_program_lengths_cover_what_the_trim_keeps(program_lengths, overlap):
+    """For every row length and chunk k, ``tokenize``'s ``codes_lengths`` of
+    the row's samples in chunk k cover the columns of it that the trim to
+    ``length // hop`` keeps, and ``detokenize``'s ``output_length`` the
+    samples the trim to ``codes * up`` keeps, for every overlap the API
+    takes, except encode's where ``ChunkGrid.masked`` says so: there encode
+    zeroes past the lengths.  The rules are the real programs' at the edges."""
+    grid = GRIDS[overlap]
+    tok, detok = program_lengths
+    assert tok == {n: int(code_lengths(np.int64(n))) for n in tok}
+    samples_a_frame = (ONE_LAYER.upsample.stack_factor * ONE_LAYER.acoustic_decoder.stride_size
+                       * ONE_LAYER.vocos.hop_size)
+    assert detok == {c: c * samples_a_frame for c in detok}
+    # A row of L samples has n = clip(L - k * stride, 0, chunk) of them in chunk k, whose kept columns
+    # the trim keeps min(kept, L // hop - k * kept) <= min(kept, (n + k * r) // hop) of, r = stride % hop:
+    # at most kept, reached for every n by k * r >= kept * hop, beyond which nothing grows.
+    n = np.arange(grid.chunk + 1)
+    r = grid.stride % grid.hop
+    k = -(-grid.kept * grid.hop // r) if r else 0
+    assert bool(np.all(code_lengths(n) >= np.minimum(grid.kept, (n + k * r) // grid.hop))) != grid.masked
+    assert grid.masked == (overlap % 2 == 1)  # 16000 samples a second, 1280 a code frame
+    # decode's chunks start on whole code frames: chunk k holds c = clip(C - k * kept, 0, chunk_codes)
+    c = np.arange(grid.chunk_codes + 1)
+    assert np.all(c * samples_a_frame >= np.minimum(grid.kept, c) * grid.up)
 
 
 def test_returned_arrays_outlive_the_next_call(model):
